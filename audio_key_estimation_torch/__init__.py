@@ -1,0 +1,23 @@
+"""audio_key_estimation_torch — PyTorch/CUDA port of the key estimator.
+
+The JAX package `audio_key_estimation_tpu` is the reference; this package
+reproduces its serving path (PCM16 WAV -> batched log1p-CQT ->
+PitchClassNet -> key name) on PyTorch, with the TPU's Pallas kernels
+rewritten by hand as CUDA C++ kernels for Hopper (sm_90a). It imports
+`torch` and never `jax`; from the reference package it shares only the
+JAX-free modules `config`, `utils.key_signatures`, `utils.labels` and
+`native`.
+
+Layering (bottom -> top), module names mirror the JAX package:
+  csrc/       CUDA C++ kernels, built with nvcc at first use (ops/_build.py)
+  ops/        CQT front-end (plain PyTorch + cqt_cuda kernels A/B),
+              equivariant convs, pooling, masked pooling, the fused
+              ConvStack layer (convstack_cuda kernel C)
+  models/     nn.Modules: PitchClassNet (default variant), blocks, channel
+              schedule, JAX-variables -> state_dict conversion
+  data/       PCM16 WAV decode and batch packing
+  predict.py  KeyEstimator serving API
+  cli/        predict entry point
+"""
+
+__version__ = "0.1.0"

@@ -1,0 +1,177 @@
+"""Serving API: waveforms/files -> key, tonic, genre predictions.
+
+PyTorch port of the JAX package's predict.py (global mode): a
+`KeyEstimator` holds a PitchClassNet on an explicit device, batches audio
+through the CQT front-end and the network, and names the result. On a
+CUDA device the CQT runs through kernels A and B (`Config.use_pallas_cqt`
+"auto"/"on") and, with `Config.fused_convstack`, the layer-1 Pitch2Pitch
+stack through kernel C.
+
+Key naming: the 12-dim sigmoid output is matched to the nearest
+KEY_SIGNATURE_MAP row (circle of fifths) exactly like the MIREX scorer
+(models.py:1083-1085); the predicted tonic then selects the major or
+relative-minor reading of that signature.
+"""
+
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import List, Mapping, Optional, Sequence, Union
+
+import numpy as np
+import torch
+
+from audio_key_estimation_tpu.utils.key_signatures import KEY_SIGNATURE_MAP
+
+from .config import Config
+from .data import audio_io
+from .data.loaders import A_GENRES
+from .models.convert import load_state_dict
+from .models.pitchclassnet import PitchClassNet, check_supported
+from .ops.cqt import CQTParams, reference_hop
+from .ops.frontend import compute_cqt, use_cuda_kernels
+
+NOTE_NAMES = ['C', 'C#', 'D', 'D#', 'E', 'F', 'F#', 'G', 'G#', 'A', 'A#', 'B']
+# major tonic of circle-of-fifths row i (0 = Cb); theoretical rows 15..20
+# map to their enharmonic base signatures (utils/key_signatures.py)
+_ROW_MAJOR_TONIC = [(11 + 7 * i) % 12 for i in range(15)] + [2, 4, 9, 3, 8, 10]
+
+
+def key_name(key_sigmoid: np.ndarray, tonic_logits: np.ndarray) -> dict:
+    """Interpret model outputs as a named key."""
+    ksm = KEY_SIGNATURE_MAP
+    v = key_sigmoid / max(np.linalg.norm(key_sigmoid), 1e-8)
+    sims = (ksm @ v) / np.linalg.norm(ksm, axis=1)
+    row = int(np.argmax(sims))
+    tonic = int(np.argmax(tonic_logits))
+    major_tonic = _ROW_MAJOR_TONIC[row]
+    if tonic == major_tonic:
+        name = f"{NOTE_NAMES[tonic]} major"
+    elif tonic == (major_tonic + 9) % 12:  # relative minor
+        name = f"{NOTE_NAMES[tonic]} minor"
+    else:
+        # tonic disagrees with the signature; report tonic with the
+        # signature's accidentals as context
+        name = f"{NOTE_NAMES[tonic]} (signature {NOTE_NAMES[major_tonic]} major)"
+    return {"key": name, "signature_row": row, "tonic": NOTE_NAMES[tonic],
+            "confidence": float(sims[row])}
+
+
+@dataclass
+class Prediction:
+    key: str
+    tonic: str
+    confidence: float
+    genre: Optional[str] = None
+    key_probs: Optional[np.ndarray] = None
+    tonic_logits: Optional[np.ndarray] = None
+
+
+class KeyEstimator:
+    """Batched inference over arbitrary audio.
+
+    >>> est = KeyEstimator.from_torch_checkpoint("best_model.pt", cfg,
+    ...                                          device="cuda")
+    >>> est.predict_files(["song.wav"])  # -> [Prediction(key='A minor', ...)]
+    """
+
+    def __init__(self, cfg: Config, state_dict: Mapping, *,
+                 device: Union[str, torch.device] = "cpu",
+                 bucket_seconds=(60, 180, 420)):
+        """state_dict: the port's / the reference's torch state_dict or
+        `models.convert.state_dict_from_jax` of JAX variables (numpy
+        arrays or tensors)."""
+        self.device = torch.device(device)
+        if self.device.type == "cuda" and not torch.cuda.is_available():
+            raise RuntimeError(f"device={device!r}: CUDA is not available")
+        # serving is global mode, as in the JAX package
+        self.cfg = cfg.replace(local=False)
+        check_supported(self.cfg)
+        self.use_kernels = use_cuda_kernels(self.cfg.use_pallas_cqt,
+                                            self.device)
+        self.model = PitchClassNet(self.cfg)
+        load_state_dict(self.model, state_dict)
+        self.model.to(self.device).eval()
+        self.bucket_seconds = bucket_seconds
+
+    # ------------------------------------------------------------------
+    @classmethod
+    def from_checkpoint(cls, run_dir: str, name: str = "best_model", **kw):
+        raise NotImplementedError(
+            "orbax checkpoints are not ported yet (ROADMAP.md port queue "
+            "item 6, train/); use from_torch_checkpoint")
+
+    @classmethod
+    def from_torch_checkpoint(cls, path: str, cfg: Config, **kw):
+        """Load a reference `best_model.pt` (a torch state_dict)."""
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        return cls(cfg, sd, **kw)
+
+    # ------------------------------------------------------------------
+    def _bucket_len(self, seconds: float) -> float:
+        for b in self.bucket_seconds:
+            if seconds <= b:
+                return b
+        return float(np.ceil(seconds / 60.0) * 60)
+
+    def make_batch(self, waveforms, sr: int):
+        """Bucket-padded signal batch + true seq lengths, on the device."""
+        cfg = self.cfg
+        longest = max(len(w) for w in waveforms)
+        hop = reference_hop(sr, cfg.frames, cfg.window_size, longest)
+        pad_len = int(self._bucket_len(longest / sr) * sr)
+        # int16 when every waveform is raw PCM16 (half the H2D bytes;
+        # normalization runs inside the CQT), else float32
+        batch = audio_io.pack_batch(waveforms, pad_len)
+        seq = np.array([1 + len(w) // hop for w in waveforms], np.int32)
+        return (torch.from_numpy(batch).to(self.device),
+                torch.from_numpy(seq).to(self.device), hop)
+
+    def features(self, batch: torch.Tensor, sr: int, hop: int):
+        """(B, L) signal batch -> (B, pitches, T, 1) log1p-CQT."""
+        cfg = self.cfg
+        params = CQTParams(sr=sr, hop=hop, bins_per_octave=cfg.bins_per_octave,
+                           octaves=cfg.octaves)
+        return compute_cqt(batch, params, use_kernels=self.use_kernels,
+                           conv_dtype=cfg.cqt_conv_dtype)[..., None]
+
+    @torch.inference_mode()
+    def predict_waveforms(self, waveforms: Sequence[np.ndarray], sr: int,
+                          return_raw: bool = False) -> List[Prediction]:
+        batch, seq, hop = self.make_batch(waveforms, sr)
+        out = self.model(self.features(batch, sr, hop), seq)
+        key = out[0].cpu().numpy()
+        tonic = out[1].cpu().numpy()
+        genre = out[2].cpu().numpy() if len(out) > 2 else None
+        preds = []
+        for i in range(len(waveforms)):
+            info = key_name(key[i], tonic[i])
+            preds.append(Prediction(
+                key=info["key"], tonic=info["tonic"],
+                confidence=info["confidence"],
+                genre=(A_GENRES[int(np.argmax(genre[i]))]
+                       if genre is not None else None),
+                key_probs=key[i] if return_raw else None,
+                tonic_logits=tonic[i] if return_raw else None))
+        return preds
+
+    def predict_files(self, paths: Sequence[Union[str, os.PathLike]],
+                      **kw) -> List[Prediction]:
+        decoded = list(audio_io.decode_many(str(p) for p in paths))
+        by_sr = {}
+        for i, (w, sr) in enumerate(decoded):
+            by_sr.setdefault(sr, []).append((i, w))
+        results: list = [None] * len(decoded)
+        for sr, group in by_sr.items():
+            preds = self.predict_waveforms([w for _, w in group], sr, **kw)
+            for (i, _), p in zip(group, preds):
+                results[i] = p
+        return results
+
+    def predict_waveforms_local(self, *a, **kw):
+        raise NotImplementedError(
+            "local-mode serving is not ported yet: ROADMAP.md port queue "
+            "item 2 (local mode)")
+
+    predict_files_local = predict_waveforms_local

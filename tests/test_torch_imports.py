@@ -1,0 +1,207 @@
+"""PyTorch port: import hygiene, device handling, and the copied constants.
+
+The port (audio_key_estimation_torch) must import no JAX, take only the
+JAX-free modules of the reference package, refuse a CUDA device it cannot
+have, and carry bit-exact copies of the host constants it could not
+import (the modules holding them import JAX).
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+from dataclasses import astuple
+
+import numpy as np
+import pytest
+import torch
+
+from audio_key_estimation_tpu.config import Config
+from audio_key_estimation_tpu.data import audio_io as jax_audio_io
+from audio_key_estimation_tpu.data.loaders import A_GENRES
+from audio_key_estimation_tpu.models import schedule as jax_schedule
+from audio_key_estimation_tpu.ops import cqt as jax_cqt
+from audio_key_estimation_tpu.ops import cqt_pallas as jax_cqt_pallas
+
+from audio_key_estimation_torch.data import audio_io
+from audio_key_estimation_torch.data.loaders import A_GENRES as PORT_GENRES
+from audio_key_estimation_torch.models import schedule
+from audio_key_estimation_torch.ops import convstack_cuda, cqt, cqt_cuda
+from audio_key_estimation_torch.ops.frontend import use_cuda_kernels
+from audio_key_estimation_torch.predict import KeyEstimator
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ALLOWED_TPU_MODULES = {
+    "audio_key_estimation_tpu", "audio_key_estimation_tpu.config",
+    "audio_key_estimation_tpu.utils", "audio_key_estimation_tpu.utils.labels",
+    "audio_key_estimation_tpu.utils.key_signatures",
+    "audio_key_estimation_tpu.native", "audio_key_estimation_tpu.native.binding",
+}
+
+TINY = dict(octaves=3, num_layers=2, conv_layers=1, n_filters=2,
+            kernel_size=3, head_layers=1)
+
+
+def test_port_serves_without_jax(tmp_path):
+    """Import the port and serve one tiny WAV on the CPU in a fresh
+    interpreter: no jax/flax module may load, and only the JAX-free
+    reference modules."""
+    code = textwrap.dedent(f"""
+        import json, sys
+        import numpy as np
+        import audio_key_estimation_torch
+        from audio_key_estimation_torch.cli import predict as cli
+        from audio_key_estimation_torch.config import Config
+        from audio_key_estimation_torch.data import audio_io
+        from audio_key_estimation_torch.models import PitchClassNet
+        from audio_key_estimation_torch.ops import cqt_cuda, convstack_cuda
+        from audio_key_estimation_torch.predict import KeyEstimator
+        cfg = Config(**{TINY!r})
+        wav = {str(tmp_path / "a.wav")!r}
+        t = np.arange(8000 * 2) / 8000
+        audio_io.write_wav(wav, 0.3 * np.sin(2 * np.pi * 330 * t), 8000)
+        est = KeyEstimator(cfg, PitchClassNet(cfg).state_dict(),
+                           device="cpu", bucket_seconds=(3,))
+        pred = est.predict_files([wav], return_raw=True)[0]
+        assert np.isfinite(pred.key_probs).all(), pred
+        print(json.dumps({{"mods": sorted(sys.modules), "key": pred.key}}))
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    import json
+    mods = json.loads(res.stdout.strip().splitlines()[-1])["mods"]
+    assert "jax" not in mods and "flax" not in mods
+    assert not [m for m in mods if m.startswith(("jax.", "flax.", "jaxlib"))]
+    tpu = {m for m in mods if m.startswith("audio_key_estimation_tpu")}
+    assert tpu <= ALLOWED_TPU_MODULES, tpu - ALLOWED_TPU_MODULES
+
+
+def test_cuda_device_refused_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    from audio_key_estimation_torch.models import PitchClassNet
+    cfg = Config(**TINY)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        KeyEstimator(cfg, PitchClassNet(cfg).state_dict(), device="cuda")
+
+
+def test_kernel_wrappers_never_fall_back_off_cpu():
+    """A tensor that is neither on the CPU nor on a CUDA device must not
+    reach a plain version: each wrapper raises."""
+    m = torch.empty(2, 4096, dtype=torch.float32, device="meta")
+    with pytest.raises(ValueError):
+        cqt_cuda.cascade_pad(m, 256, 3000, 1500, 2024,
+                             cqt.halfband_taps(), torch.float32)
+    bank = torch.empty(72, 512, device="meta")
+    with pytest.raises(ValueError):
+        cqt_cuda.octave_response(m, torch.zeros(5, dtype=torch.int32),
+                                 bank, torch.empty(36, device="meta"),
+                                 torch.empty(2, 288, 5, device="meta"), 0)
+    x = torch.empty(1, 8, 8, 8, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError):
+        convstack_cuda.conv7_layer(
+            x, torch.empty(8, 8, 7, 7, dtype=torch.bfloat16, device="meta"),
+            torch.empty(8, device="meta"))
+    assert cqt_cuda.cascade_pad.launches == 0
+    assert convstack_cuda.conv7_layer.launches == 0
+
+
+def test_use_pallas_cqt_resolution():
+    cpu, gpu = torch.device("cpu"), torch.device("cuda")
+    assert use_cuda_kernels("auto", cpu) is False
+    assert use_cuda_kernels("auto", gpu) is True
+    assert use_cuda_kernels("off", gpu) is False
+    assert use_cuda_kernels(True, gpu) is True
+    with pytest.raises(ValueError, match="CUDA"):
+        use_cuda_kernels("on", cpu)
+    with pytest.raises(ValueError):
+        use_cuda_kernels("sometimes", gpu)
+
+
+@pytest.mark.parametrize("sr,hop,bpo,octaves", [
+    (22050, 4410, 36, 8), (22050, 4410, 12, 8), (8000, 1600, 12, 3),
+    (44100, 8820, 36, 7), (22050, 4410, 36, 4)])
+def test_cqt_constants_bit_equal(sr, hop, bpo, octaves):
+    pj = jax_cqt.CQTParams(sr=sr, hop=hop, bins_per_octave=bpo,
+                           octaves=octaves)
+    pt = cqt.CQTParams(sr=sr, hop=hop, bins_per_octave=bpo, octaves=octaves)
+    bj, bt = jax_cqt.kernel_bank(pj), cqt.kernel_bank(pt)
+    assert bj["n_fft"] == bt["n_fft"]
+    for k in ("k_cos", "k_sin", "scales"):
+        assert bj[k].dtype == bt[k].dtype
+        np.testing.assert_array_equal(bj[k], bt[k])
+    for o in range(octaves):
+        assert (jax_cqt_pallas._frame_starts(hop, o, 900)
+                == cqt._frame_starts(hop, o, 900))
+
+
+def test_halfband_and_poly_matrix_bit_equal():
+    np.testing.assert_array_equal(jax_cqt.halfband_taps(),
+                                  cqt.halfband_taps())
+    np.testing.assert_array_equal(jax_cqt.halfband_taps(33),
+                                  cqt.halfband_taps(33))
+    np.testing.assert_array_equal(jax_cqt._poly_matrix(), cqt._poly_matrix())
+    scaled = cqt.halfband_taps() * np.float32(1 / 32768.0)
+    np.testing.assert_array_equal(jax_cqt._poly_matrix(scaled),
+                                  cqt._poly_matrix(scaled))
+    # the polyphase matrix is the direct FIR the port's kernel A computes
+    w = cqt._poly_matrix()
+    taps = cqt.halfband_taps()
+    for m in (0, 7, 127):
+        np.testing.assert_array_equal(w[2 * m:2 * m + 49, m], taps)
+
+
+def test_reference_hop_and_genres_equal():
+    for sr in (8000, 16000, 22050, 44100):
+        for frames in (1, 5, 10):
+            assert (jax_cqt.reference_hop(sr, frames)
+                    == cqt.reference_hop(sr, frames))
+        assert (jax_cqt.reference_hop(sr, 0, 592, 123457)
+                == cqt.reference_hop(sr, 0, 592, 123457))
+    assert PORT_GENRES == A_GENRES and len(PORT_GENRES) == 11
+
+
+def test_channel_schedule_equal():
+    for nf in (1, 2, 4, 8):
+        for cl in (1, 2, 3):
+            for dense in (False, True):
+                for layer in range(5):
+                    assert (astuple(jax_schedule.layer_channels(
+                        layer, nf, cl, dense)) == astuple(
+                        schedule.layer_channels(layer, nf, cl, dense)))
+                for nl in range(1, 6):
+                    assert (jax_schedule.head_in_channels(nl, nf, cl, dense)
+                            == schedule.head_in_channels(nl, nf, cl, dense))
+
+
+def test_pcm16_io_matches_reference(tmp_path, rng):
+    """write_wav / _wav_layout / _decode_wav_raw / pack_batch equal the
+    JAX package's, and the port refuses encodings it has not ported."""
+    y = (0.4 * rng.standard_normal(5001)).astype(np.float32)
+    pa, pb = str(tmp_path / "a.wav"), str(tmp_path / "b.wav")
+    audio_io.write_wav(pa, y, 16000)
+    jax_audio_io.write_wav(pb, y, 16000)
+    assert open(pa, "rb").read() == open(pb, "rb").read()
+    assert audio_io._wav_layout(pa) == jax_audio_io._wav_layout(pa)
+    xa, sra = audio_io._decode_wav_raw(pa)
+    xb, srb = jax_audio_io._decode_wav_raw(pa)
+    assert sra == srb and xa.dtype == np.int16
+    np.testing.assert_array_equal(xa, xb)
+    xc, _ = audio_io.decode_audio(pa)
+    np.testing.assert_array_equal(xc, jax_audio_io.decode_audio(pa, raw=True)[0])
+    fa = xa.astype(np.float32) / 32768.0
+    waves = [xa, xa[:100]]
+    np.testing.assert_array_equal(audio_io.pack_batch(waves, 6000, n_rows=3),
+                                  jax_audio_io.pack_batch(waves, 6000,
+                                                          n_rows=3))
+    mixed = [xa, fa]
+    np.testing.assert_array_equal(audio_io.pack_batch(mixed, 6000),
+                                  jax_audio_io.pack_batch(mixed, 6000))
+    got = list(audio_io.decode_many([pa, pa]))
+    assert len(got) == 2 and got[1][1] == 16000
+    mp3 = tmp_path / "c.mp3"
+    mp3.write_bytes(b"\xff\xfb" + bytes(100))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        audio_io.decode_audio(str(mp3))

@@ -1,0 +1,92 @@
+"""PyTorch port: the serving API and CLI against the JAX KeyEstimator.
+
+Same tiny PCM16 WAVs, same weights (flax init, converted with
+`state_dict_from_jax`), float32 CQT streams on both sides.
+"""
+
+import numpy as np
+import pytest
+import torch
+
+from audio_key_estimation_tpu.config import Config
+from audio_key_estimation_tpu.predict import KeyEstimator as JaxEstimator
+from audio_key_estimation_tpu.predict import key_name as jax_key_name
+from audio_key_estimation_tpu.utils.key_signatures import KEY_SIGNATURE_MAP
+
+from audio_key_estimation_torch.cli import predict as cli
+from audio_key_estimation_torch.data import audio_io
+from audio_key_estimation_torch.models.convert import state_dict_from_jax
+from audio_key_estimation_torch.predict import (KeyEstimator, Prediction,
+                                                key_name)
+from torch_parity import jax_variables
+
+CFG = Config(octaves=4, num_layers=2, conv_layers=1, n_filters=2,
+             kernel_size=3, head_layers=1, genre=True,
+             cqt_conv_dtype="float32")
+SR = 8000
+
+
+def _wavs(tmp_path, seconds=(3.0, 2.2)):
+    paths = []
+    for i, (f, s) in enumerate(zip((261.6, 440.0), seconds)):
+        t = np.arange(int(SR * s)) / SR
+        y = 0.4 * np.sin(2 * np.pi * f * t) + 0.2 * np.sin(3 * np.pi * f * t)
+        p = str(tmp_path / f"s{i}.wav")
+        audio_io.write_wav(p, y, SR)
+        paths.append(p)
+    return paths
+
+
+def test_predict_files_matches_jax(tmp_path, rng):
+    _, variables = jax_variables(CFG, rng)
+    paths = _wavs(tmp_path)
+    ref = JaxEstimator(CFG, variables, bucket_seconds=(4,)).predict_files(
+        paths, return_raw=True)
+    est = KeyEstimator(CFG, state_dict_from_jax(variables), device="cpu",
+                       bucket_seconds=(4,))
+    got = est.predict_files(paths, return_raw=True)
+    assert len(got) == len(ref) == 2
+    for g, r in zip(got, ref):
+        assert isinstance(g, Prediction)
+        np.testing.assert_allclose(g.key_probs, r.key_probs, rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(g.tonic_logits, r.tonic_logits,
+                                   rtol=1e-4, atol=1e-4)
+        assert (g.key, g.tonic, g.genre) == (r.key, r.tonic, r.genre)
+        assert abs(g.confidence - r.confidence) < 1e-4
+
+
+def test_key_name_agrees_on_every_signature_row(rng):
+    for row in range(KEY_SIGNATURE_MAP.shape[0]):
+        sig = KEY_SIGNATURE_MAP[row].astype(np.float32)
+        noisy = sig + 0.05 * rng.random(12).astype(np.float32)
+        for tonic in range(12):
+            logits = np.eye(12, dtype=np.float32)[tonic]
+            for v in (sig, noisy):
+                assert key_name(v, logits) == jax_key_name(v, logits)
+
+
+def test_cli_runs(tmp_path, capsys):
+    cfg = CFG.replace(genre=False)
+    from audio_key_estimation_torch.models import PitchClassNet
+    ckpt = str(tmp_path / "best_model.pt")
+    torch.save(PitchClassNet(cfg).state_dict(), ckpt)
+    paths = _wavs(tmp_path)
+    flags = ["--octaves", "4", "--num_layers", "2", "--conv_layers", "1",
+             "--n_filters", "2", "--kernel_size", "3", "--head_layers", "1"]
+    out = cli.main(paths + flags + ["--torch_ckpt", ckpt, "--device", "cpu"])
+    assert set(out) == set(paths)
+    printed = capsys.readouterr().out
+    assert all(p in printed for p in paths) and "conf" in printed
+
+
+def test_unported_entry_points_raise(tmp_path):
+    from audio_key_estimation_torch.models import PitchClassNet
+    est = KeyEstimator(CFG, PitchClassNet(CFG).state_dict(), device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        est.predict_files_local(_wavs(tmp_path))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        KeyEstimator.from_checkpoint(str(tmp_path))
+    with pytest.raises(ValueError, match="CUDA"):
+        KeyEstimator(CFG.replace(use_pallas_cqt="on"),
+                     PitchClassNet(CFG).state_dict(), device="cpu")
