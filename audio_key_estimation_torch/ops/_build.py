@@ -1,7 +1,8 @@
 """Build and load the port's CUDA kernels (csrc/*.cu) at first use.
 
 nvcc compiles every source in `audio_key_estimation_torch/csrc/` for
-Hopper (sm_90a) into one shared library with a plain C interface, loaded
+Hopper (sm_90a), one process per source, all started together, and links
+the objects into one shared library with a plain C interface, loaded
 with ctypes — no PyTorch headers, so the build takes seconds. The library
 lands in `audio_key_estimation_torch/_build/` (git-ignored) under a name
 that hashes the sources and flags, so an edited source always rebuilds.
@@ -24,8 +25,7 @@ PKG = Path(__file__).resolve().parent.parent
 CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
-              "-Xptxas", "-v")
+              "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
 
 # dtype codes of csrc/common.cuh
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2}
@@ -36,7 +36,14 @@ _SIGNATURES = {
                         _P, _P],
     "akt_octave_response": [_P, _I, _LL, _P, _I, _P, _P, _I, _I, _P, _LL,
                             _I, _I, _P],
+    "akt_octave_response_stage": [_P, _I, _LL, _P, _I, _P, _P, _I, _I, _P,
+                                  _I, _I, _P],
     "akt_conv7": [_P, _P, _P, _P, _I, _I, _I, _P],
+    "akt_window_copy": [_P, _LL, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P,
+                        _P],
+    "akt_launch_probe": [_P, _P, _I, _I, _P],
+    "akt_transpose_pad": [_P, _I, _LL, _I, _I, _I, _I, _P, _P],
+    "akt_probe_primitive": [_I, _P, _P, _P],
 }
 
 
@@ -65,12 +72,30 @@ def build() -> Path:
         return so
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-           *map(str, sorted(CSRC.glob("*.cu")))]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    so.with_suffix(".log").write_text(res.stdout + res.stderr)
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+    srcs = sorted(CSRC.glob("*.cu"))
+    objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in srcs]
+    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
+                               str(p)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for p, o in zip(srcs, objs)]
+    report, failed = [], []
+    for p, proc in zip(srcs, procs):
+        out = proc.communicate()[0]
+        report.append(f"== {p.name}\n{out}")
+        if proc.returncode != 0:
+            failed.append(f"{p.name} ({proc.returncode}):\n{out}")
+    if not failed:
+        res = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True)
+        report.append(f"== link\n{res.stdout}{res.stderr}")
+        if res.returncode != 0:
+            failed.append(f"link ({res.returncode}):\n{res.stderr}")
+    for o in objs:
+        o.unlink(missing_ok=True)
+    so.with_suffix(".log").write_text("".join(report))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
     os.replace(tmp, so)
     return so
 

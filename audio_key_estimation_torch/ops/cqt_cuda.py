@@ -12,7 +12,9 @@ as ops/cqt.py::cqt — the semantics of the JAX package's
   kernel B  octave_response   csrc/cqt_response.cu: frame gather x bank
             GEMM -> magnitude -> scale -> log1p, written into the octave's
             rows of the output (replaces `_octave_response_frames` and
-            `_octave_response_span`).
+            `_octave_response_span`); `octave_response_stage` runs
+            it cut off after one stage (load / realign / gemm / full),
+            the counterpart of scripts/probe_cqt_kernel_stages.py.
 
 Streams are batch-major (B, Lpad) rows: octave 0 keeps the input dtype
 (int16 PCM stays int16), octaves >= 1 are stored at `stream_dtype`. Each
@@ -151,6 +153,83 @@ def octave_response(ypad: torch.Tensor, starts: torch.Tensor,
 
 
 octave_response.launches = 0
+
+
+# stage codes of csrc/cqt_response.cu
+STAGES = ("load", "realign", "gemm", "full")
+_ALIGN = 16   # the TPU's sublane alignment of window starts
+
+
+def octave_response_stage_plain(ypad: torch.Tensor, starts: torch.Tensor,
+                                bank_t: torch.Tensor, scales: torch.Tensor,
+                                stage: str) -> torch.Tensor:
+    """Plain version of the stage probe: (B, bpo, T) float32.
+
+    load    x[start // 16 * 16 + i], i < bpo (the raw aligned window);
+    realign x[start + i];
+    gemm    cos rows of bank @ the window at the aligned start (unrotated);
+    full    kernel B's log1p responses.
+    """
+    bpo = bank_t.shape[0] // 2
+    n_fft = bank_t.shape[1]
+    if stage == "full":
+        return octave_response_plain(ypad, starts, bank_t.T, scales)
+    _require(stage in STAGES, f"stage {stage!r}: one of {STAGES}")
+    st = starts.to(ypad.device).long()
+    if stage != "realign":
+        st = st // _ALIGN * _ALIGN
+    width = n_fft if stage == "gemm" else bpo
+    frames = ypad[:, st[:, None] + torch.arange(width, device=ypad.device)]
+    frames = frames.float()                             # (B, T, width)
+    if stage == "gemm":
+        frames = frames @ bank_t[:bpo].T
+    return frames.transpose(1, 2).contiguous()
+
+
+def octave_response_stage(ypad: torch.Tensor, starts: torch.Tensor,
+                          bank_t: torch.Tensor, scales: torch.Tensor,
+                          stage: str) -> torch.Tensor:
+    """Kernel B cut off after `stage` -> (B, bpo, T) float32 (the kernel
+    on CUDA, the plain version on CPU). Same arguments and preconditions
+    as `octave_response`; the aligned windows of load and gemm lie inside
+    the exact ones' rows, since starts are >= 0."""
+    if ypad.device.type == "cpu":
+        return octave_response_stage_plain(ypad, starts, bank_t, scales,
+                                           stage)
+    _require(stage in STAGES, f"stage {stage!r}: one of {STAGES}")
+    _require(ypad.is_cuda, f"octave_response_stage: unsupported device "
+             f"{ypad.device}")
+    _require(ypad.dtype in _build.DTYPE_CODES and ypad.ndim == 2
+             and ypad.stride(1) == 1,
+             f"octave_response_stage: stream {ypad.dtype} "
+             f"{tuple(ypad.shape)} with contiguous rows")
+    bpo = bank_t.shape[0] // 2
+    T = starts.shape[0]
+    _require(starts.dtype == torch.int32 and starts.ndim == 1
+             and starts.is_cuda, "octave_response_stage: starts must be "
+             "(T,) int32 on the device")
+    for t in (bank_t, scales):
+        _require(t.dtype == torch.float32 and t.is_contiguous()
+                 and t.is_cuda, "octave_response_stage: bank/scales must "
+                 "be contiguous float32 on the device")
+    _require(bank_t.ndim == 2 and scales.shape == (bpo,),
+             f"octave_response_stage: bank {tuple(bank_t.shape)}, scales "
+             f"{tuple(scales.shape)}")
+    B = ypad.shape[0]
+    out = torch.empty(B, bpo, T, dtype=torch.float32, device=ypad.device)
+    lib = _build.library()
+    with torch.cuda.device(ypad.device):
+        rc = lib.akt_octave_response_stage(
+            ypad.data_ptr(), _build.DTYPE_CODES[ypad.dtype], ypad.stride(0),
+            starts.data_ptr(), T, bank_t.data_ptr(), scales.data_ptr(), bpo,
+            bank_t.shape[1], out.data_ptr(), STAGES.index(stage), B,
+            _build.stream_handle(ypad.device))
+    _build.check(lib, rc, f"octave_response_stage {stage} (kernel B)")
+    octave_response_stage.launches += 1
+    return out
+
+
+octave_response_stage.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,314 @@
+"""The probe and experiment kernels on the card, each beside its plain version.
+
+Counterparts of the TPU kernels in the JAX package's `scripts/` (the
+probes that told what bounds a kernel where no hardware counter could):
+
+  window_copy   csrc/probe_window_copy.cu  <- probe_dma_rate.py::build
+  transpose_pad csrc/transpose_pad.cu      <- experiment_transpose_kernel.py
+                                              ::_transpose_pad_call
+  launch_probe  csrc/probe_launch.cu       <- probe_pallas_overhead.py::build
+  primitive     csrc/probe_primitives.cu   <- probe_pallas_primitives.py
+                                              p1_reshape .. p5_window
+
+(The stage split of kernel B, probe_cqt_kernel_stages.py, is
+`cqt_cuda.octave_response_stage`.) Each wrapper launches its kernel for a
+CUDA tensor (or raises) and runs the plain PyTorch version only for a CPU
+tensor; `launches` counts kernel launches. `response_plan` and `tp_plan`
+are copies of the JAX package's geometry rules (those modules import
+JAX), pinned to the originals by tests/test_torch_probes.py.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from . import _build
+from .cqt import pad_stream
+from .cqt_cuda import _require
+
+ALIGN = 16                # the TPU's sublane alignment of window starts
+STATIC_STRIDE = 8816      # dma3_static's frame spacing at 44.1 kHz
+WINDOW_VARIANTS = ("grid", "dma1", "dma3", "dma3_static", "dma3_big",
+                   "dma3_db")
+PRIMITIVES = {            # name: (input shape, input dtype, output shape)
+    "p1_reshape": ((8, 128), torch.float32, (4, 256)),
+    "p2_strided": ((8, 128), torch.float32, (4, 256)),
+    "p3_int16": ((8, 128), torch.int16, (8, 128)),
+    "p4_dma": ((4, 4096), torch.float32, (4, 256)),
+    "p4b_dma_2d": ((64, 256), torch.float32, (4, 16, 256)),
+    "p5_window": ((9, 256), torch.float32, (8, 304)),
+}
+_SMEM_BUDGET = 64 << 10   # staged window bytes per window_copy block
+
+# audio_key_estimation_tpu/ops/cqt_pallas.py response-kernel budgets
+_TILE_T = 8
+_VMEM_BUDGET = 12 << 20
+_VMEM_CHUNK_BUDGET = 10 << 20
+# scripts/experiment_transpose_kernel.py block sizes
+_TP_SUP = 4096
+
+
+def response_plan(n_fft: int, b_pad: int, itemsize: int):
+    """(tile_t, b_chunk): cqt_pallas.py::_response_plan, the frames per
+    grid step the TPU's response kernel and its probes use."""
+    win = n_fft + ALIGN
+    per_lane = 2 * win * itemsize + n_fft * 4
+    if b_pad * per_lane <= _VMEM_BUDGET:
+        tile_t = max(1, min(_TILE_T, _VMEM_BUDGET // (b_pad * per_lane)))
+        return tile_t, b_pad
+    return 1, min(_VMEM_CHUNK_BUDGET // per_lane // 128 * 128, b_pad)
+
+
+def tp_plan(L: int, half: int, need: int, sup: int):
+    """experiment_transpose_kernel.py::_tp_plan: (ok, C, lfull, tb_abs,
+    hbi, top_off, tbi, rem) of the TPU kernel's block layout."""
+    C = (L // 128) * 128
+    tb_abs = half + C
+    lfull = -(-max(need, tb_abs + 1) // sup) * sup
+    hbi, top_off = divmod(half, sup)
+    tbi, rem = divmod(tb_abs, sup)
+    ok = (half >= 128 and half % 128 == 0 and C >= sup and tbi >= hbi + 1)
+    return ok, C, lfull, tb_abs, hbi, top_off, tbi, rem
+
+
+# ---------------------------------------------------------------------------
+# #5 window copy
+# ---------------------------------------------------------------------------
+
+def static_stride(hop: int, t_pad: int, win: int, Lpad: int) -> int:
+    """dma3_static's frame spacing: the hop rounded down to 16 (the TPU
+    probe's 8816 at 44.1 kHz), cut in steps of 16 until the last window
+    ends inside the stream (at its own default geometry the TPU probe's
+    padding frames ran past the end)."""
+    s = hop // ALIGN * ALIGN
+    if t_pad > 1:
+        s = min(s, (Lpad - win) // (t_pad - 1) // ALIGN * ALIGN)
+    return s
+
+
+def window_offsets(starts: torch.Tensor, variant: str, tile_t: int,
+                   win: int, Lpad: int,
+                   static_stride: int = STATIC_STRIDE) -> torch.Tensor:
+    """(t_pad / tile_t,) int64: each step's aligned offset of window 0."""
+    first = starts.long()[::tile_t]
+    if variant == "dma3_static":
+        step = torch.arange(first.shape[0], device=starts.device)
+        first = step * tile_t * static_stride
+    elif variant == "dma3_big":
+        first = first.clamp(max=Lpad - tile_t * win - ALIGN)
+    return first // ALIGN * ALIGN
+
+
+def window_copy_plain(x: torch.Tensor, starts: torch.Tensor, variant: str,
+                      tile_t: int, win: int,
+                      static_stride: int = STATIC_STRIDE) -> torch.Tensor:
+    """(t_pad / tile_t, tile_t, 1) float32: per step, 1.0 for `grid`, else
+    x[0, offset of window 0 + i] for i < tile_t (the sample the TPU probe
+    writes from frames[0, i, 0])."""
+    _require(variant in WINDOW_VARIANTS, f"variant {variant!r}")
+    grid_n = starts.shape[0] // tile_t
+    if variant == "grid":
+        return torch.ones(grid_n, tile_t, 1, device=x.device)
+    off = window_offsets(starts, variant, tile_t, win, x.shape[1],
+                         static_stride)
+    idx = off.to(x.device)[:, None] + torch.arange(tile_t, device=x.device)
+    return x[0, idx].float()[..., None]
+
+
+def window_copy_bytes(variant: str, t_pad: int, tile_t: int, win: int,
+                      B: int) -> int:
+    """Stream bytes a variant stages (int16 windows)."""
+    chain = t_pad * win * B * 2
+    return {"grid": 0, "dma1": chain // tile_t}.get(variant, chain)
+
+
+def window_copy(x: torch.Tensor, starts: torch.Tensor, variant: str,
+                tile_t: int, win: int,
+                static_stride: int = STATIC_STRIDE) -> torch.Tensor:
+    """Stage the frame windows of an int16 (B, Lpad) stream as `variant`
+    copies them (probe_window_copy.cu; its plain version on CPU).
+
+    starts (t_pad,) int32, t_pad a multiple of tile_t; every window
+    [start // 16 * 16, + win) must lie inside the stream's rows. dma3_static
+    reads the windows at (t * static_stride) // 16 * 16 instead (the TPU
+    probe's 8816 is its 44.1 kHz hop rounded down to 16)."""
+    if x.device.type == "cpu":
+        return window_copy_plain(x, starts, variant, tile_t, win,
+                                 static_stride)
+    _require(variant in WINDOW_VARIANTS, f"variant {variant!r}")
+    _require(x.is_cuda and x.dtype == torch.int16 and x.ndim == 2
+             and x.stride(1) == 1 and x.stride(0) % 8 == 0
+             and x.data_ptr() % 16 == 0,
+             "window_copy: x must be a CUDA int16 (B, Lpad) stream with "
+             "16-byte aligned rows")
+    _require(starts.dtype == torch.int32 and starts.ndim == 1
+             and starts.is_cuda and starts.shape[0] % tile_t == 0,
+             "window_copy: starts must be (t_pad,) int32 on the device, "
+             "t_pad a multiple of tile_t")
+    B, Lpad = x.shape
+    t_pad = starts.shape[0]
+    if variant == "dma3_static":
+        _require(static_stride >= 0 and (t_pad - 1) * static_stride
+                 // ALIGN * ALIGN + win <= Lpad,
+                 "window_copy: dma3_static windows run past the stream")
+    slots = 2 if variant == "dma3_db" else 1
+    chunk = max(1, min(B, _SMEM_BUDGET // (slots * tile_t * win * 2)))
+    out = torch.empty(t_pad // tile_t, tile_t, 1, dtype=torch.float32,
+                      device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.akt_window_copy(
+            x.data_ptr(), x.stride(0), Lpad, B, starts.data_ptr(), t_pad,
+            tile_t, win, chunk, WINDOW_VARIANTS.index(variant),
+            static_stride, out.data_ptr(), _build.stream_handle(x.device))
+    _build.check(lib, rc, f"window_copy {variant}")
+    window_copy.launches += 1
+    return out
+
+
+window_copy.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# #7 transpose-pad
+# ---------------------------------------------------------------------------
+
+def transpose_pad_geometry(y: torch.Tensor, last_start: int, n_fft: int):
+    """lfull of transpose_pad_tm at this geometry, or None where the TPU
+    kernel's _tp_plan refuses it."""
+    B, L = y.shape
+    half = n_fft // 2
+    need = last_start + n_fft + ALIGN
+    sup = _TP_SUP if y.dtype.itemsize == 2 else _TP_SUP // 2
+    ok, _, lfull, *_ = tp_plan(L, half, need, sup)
+    if not ok or L < half + 2:
+        return None
+    return lfull
+
+
+def transpose_pad_plain(y: torch.Tensor, half: int,
+                        lfull: int) -> torch.Tensor:
+    """(B, L) -> (lfull, B): y reflect-padded by (half, half + 1), zeros
+    beyond, cut to lfull rows, time-major."""
+    return pad_stream(y, half, lfull)[:, :lfull].T.contiguous()
+
+
+def transpose_pad_tm(y: torch.Tensor, last_start: int,
+                     n_fft: int) -> torch.Tensor | None:
+    """experiment_transpose_kernel.py::transpose_pad_tm: the fused
+    (B, L) -> (lfull, B) transpose + reflect pad + zero extension, int16
+    or float32; None where that function returns None."""
+    lfull = transpose_pad_geometry(y, last_start, n_fft)
+    if lfull is None:
+        return None
+    return transpose_pad(y, n_fft // 2, lfull)
+
+
+def transpose_pad(y: torch.Tensor, half: int, lfull: int) -> torch.Tensor:
+    """transpose_pad.cu on CUDA, its plain version on CPU."""
+    if y.device.type == "cpu":
+        return transpose_pad_plain(y, half, lfull)
+    _require(y.is_cuda and y.dtype in (torch.int16, torch.float32)
+             and y.ndim == 2 and y.stride(1) == 1,
+             "transpose_pad: y must be a CUDA int16/float32 (B, L) tensor "
+             "with contiguous rows")
+    B, L = y.shape
+    _require(L >= half + 2, "transpose_pad: L < half + 2")
+    out = torch.empty(lfull, B, dtype=y.dtype, device=y.device)
+    lib = _build.library()
+    with torch.cuda.device(y.device):
+        rc = lib.akt_transpose_pad(
+            y.data_ptr(), _build.DTYPE_CODES[y.dtype], y.stride(0), B, L,
+            half, lfull, out.data_ptr(), _build.stream_handle(y.device))
+    _build.check(lib, rc, "transpose_pad")
+    transpose_pad.launches += 1
+    return out
+
+
+transpose_pad.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# #8 launch overhead
+# ---------------------------------------------------------------------------
+
+def launch_probe_plain(x: torch.Tensor, grid_n: int) -> torch.Tensor:
+    """(grid_n, 8, 128) float32 ones; x is never read."""
+    return torch.ones(grid_n, 8, 128, device=x.device)
+
+
+def launch_probe(x: torch.Tensor, grid_n: int,
+                 repeats: int = 1) -> torch.Tensor:
+    """probe_launch.cu: grid_n blocks write ones and never read x; the
+    kernel is launched `repeats` times back to back from one C call."""
+    if x.device.type == "cpu":
+        return launch_probe_plain(x, grid_n)
+    _require(x.is_cuda and grid_n >= 1 and repeats >= 1,
+             f"launch_probe: CUDA input, grid_n >= 1, repeats >= 1 "
+             f"({x.device}, {grid_n}, {repeats})")
+    out = torch.empty(grid_n, 8, 128, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.akt_launch_probe(x.data_ptr(), out.data_ptr(), grid_n,
+                                  repeats, _build.stream_handle(x.device))
+    _build.check(lib, rc, "launch_probe")
+    launch_probe.launches += repeats
+    return out
+
+
+launch_probe.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# #9 primitives
+# ---------------------------------------------------------------------------
+
+def primitive_input(name: str) -> torch.Tensor:
+    """The input each probe of probe_pallas_primitives.py builds."""
+    shape, dtype, _ = PRIMITIVES[name]
+    n = shape[0] * shape[1]
+    if dtype == torch.int16:
+        return (torch.arange(n) % 3001 - 1500).to(torch.int16).reshape(shape)
+    return torch.arange(n, dtype=torch.float32).reshape(shape)
+
+
+def primitive_plain(name: str, x: torch.Tensor) -> torch.Tensor:
+    """The array each probe of probe_pallas_primitives.py expects."""
+    if name == "p1_reshape":
+        return x.reshape(4, 256)
+    if name == "p2_strided":
+        return torch.cat([x[0::2], x[1::2]], dim=1)
+    if name == "p3_int16":
+        return x.float() * (1.0 / 32768.0)
+    if name == "p4_dma":
+        return torch.stack([x[i, i * 128 + 64:i * 128 + 320] * 2
+                            for i in range(4)])
+    if name == "p4b_dma_2d":
+        return torch.stack([x[i * 8 + 3:i * 8 + 19] + 1 for i in range(4)])
+    if name == "p5_window":
+        return torch.cat([x[:8], x[1:9, :48]], dim=1)
+    raise ValueError(f"primitive {name!r}: one of {tuple(PRIMITIVES)}")
+
+
+def primitive(name: str, x: torch.Tensor) -> torch.Tensor:
+    """probe_primitives.cu kernel `name` on CUDA, its plain version on
+    CPU."""
+    if x.device.type == "cpu":
+        return primitive_plain(name, x)
+    _require(name in PRIMITIVES, f"primitive {name!r}")
+    shape, dtype, out_shape = PRIMITIVES[name]
+    _require(x.is_cuda and x.dtype == dtype and tuple(x.shape) == shape
+             and x.is_contiguous(),
+             f"primitive {name}: needs a contiguous CUDA {dtype} {shape}")
+    out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
+    lib = _build.library()
+    with torch.cuda.device(x.device):
+        rc = lib.akt_probe_primitive(list(PRIMITIVES).index(name),
+                                     x.data_ptr(), out.data_ptr(),
+                                     _build.stream_handle(x.device))
+    _build.check(lib, rc, f"primitive {name}")
+    primitive.launches += 1
+    return out
+
+
+primitive.launches = 0

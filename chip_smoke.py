@@ -17,7 +17,13 @@ non-zero):
              kernel's launch count checked, against the plain path
              (use_pallas_cqt="off", fused_convstack=False) on the card
              and, for two 10 s clips, on the CPU;
-  5 result   the card line, the kernels JSON line, and the last line
+  5 probes   the probe and experiment kernels (ops/probes_cuda.py and
+             kernel B's stage split) against their plain versions at a
+             small geometry and at the serving geometry, exact for the
+             copies; then each probe entry point
+             (audio_key_estimation_torch/scripts/) driven once at the
+             serving geometry, every probe kernel's launch count checked;
+  6 result   the card line, the kernels JSON line, and the last line
              {"ok": true, "device": {...}}.
 Imports only torch, numpy and the port (no JAX).
 """
@@ -26,7 +32,6 @@ from __future__ import annotations
 
 import json
 import os
-import subprocess
 import sys
 import tempfile
 import time
@@ -41,24 +46,22 @@ from audio_key_estimation_torch.ops import _build
 from audio_key_estimation_torch.ops import convstack_cuda as CS
 from audio_key_estimation_torch.ops import cqt as C
 from audio_key_estimation_torch.ops import cqt_cuda as K
+from audio_key_estimation_torch.ops import probes_cuda as PC
 from audio_key_estimation_torch.predict import KeyEstimator
+from audio_key_estimation_torch.scripts import (experiment_transpose_kernel,
+                                                probe_cqt_kernel_stages,
+                                                probe_dma_rate,
+                                                probe_pallas_overhead,
+                                                probe_pallas_primitives)
+from audio_key_estimation_torch.scripts.harness import card_line, time_ms
 
 SR = 22050
 CLIP_SECONDS = 120
 BATCH = 16
-REPS = 20
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
-
-
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True,
-        timeout=60, check=True).stdout
-    return out.strip().splitlines()[0]
 
 
 def clips(n: int = BATCH) -> list[np.ndarray]:
@@ -79,23 +82,6 @@ def clips(n: int = BATCH) -> list[np.ndarray]:
 
 def pcm16(y: np.ndarray) -> np.ndarray:
     return np.round(np.clip(y, -1.0, 1.0) * 32767.0).astype(np.int16)
-
-
-def time_ms(fn) -> float:
-    """Median CUDA-event time of fn over REPS runs after 3 warm-ups."""
-    for _ in range(3):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(REPS):
-        s = torch.cuda.Event(enable_timing=True)
-        e = torch.cuda.Event(enable_timing=True)
-        s.record()
-        fn()
-        e.record()
-        e.synchronize()
-        times.append(s.elapsed_time(e))
-    return float(np.median(times))
 
 
 def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
@@ -410,6 +396,160 @@ def stage_ms(est: KeyEstimator, paths) -> dict:
     return {n: (b - a) * 1e3 for n, a, b in zip(names, t, t[1:])}
 
 
+# ---------------------------------------------------------------------------
+# phase 5: the probe and experiment kernels
+# ---------------------------------------------------------------------------
+
+def check_exact(name, got, ref) -> float:
+    if got.shape != ref.shape or got.dtype != ref.dtype \
+            or not torch.equal(got, ref):
+        err = (float((got.float() - ref.float()).abs().max())
+               if got.shape == ref.shape else float("inf"))
+        raise AssertionError(f"{name}: not equal to its plain version "
+                             f"({tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(ref.shape)} {ref.dtype}, max |d| {err})")
+    return 0.0
+
+
+def check_window_copy(device) -> dict:
+    """#5, six variants: 44.1 kHz 3 s B = 4 (the CPU test's geometry) and
+    the serving geometry (22050 Hz, 120 s, B = 16); times at the latter."""
+    res = {"ms": 0.0, "plain_ms": 0.0, "rates": {}}
+    for sr, clip, batch in ((44100, 3, 4), (SR, CLIP_SECONDS, BATCH)):
+        n_fft, hop, L, tile_t, starts, length = probe_dma_rate.geometry(
+            sr, clip, batch)
+        win = n_fft + PC.ALIGN
+        x = probe_dma_rate.make_stream(batch, L, n_fft, length, device)
+        st = torch.tensor(starts, dtype=torch.int32, device=device)
+        stride = PC.static_stride(hop, len(starts), win, length)
+        for v in PC.WINDOW_VARIANTS:
+            args = (x, st, v, tile_t, win, stride)
+            check_exact(f"window_copy {v} sr={sr} B={batch}",
+                        PC.window_copy(*args), PC.window_copy_plain(*args))
+            if sr == SR:
+                ms = time_ms(lambda: PC.window_copy(*args))
+                res["ms"] += ms
+                res["plain_ms"] += time_ms(lambda: PC.window_copy_plain(*args))
+                res["rates"][v] = PC.window_copy_bytes(
+                    v, len(starts), tile_t, win, batch) / (ms * 1e-3) / 1e9
+    log("[5 probes] #5 window_copy: 6 variants x 2 geometries exact; at "
+        "serving geometry " + ", ".join(
+            f"{v} {r:.0f} GB/s" for v, r in res["rates"].items()))
+    return res
+
+
+def check_stages(y: torch.Tensor, p: C.CQTParams, device) -> dict:
+    """#6 on all 8 octaves of the serving clips (int16 octave 0, bf16
+    streams from kernel A) and on a small 8 kHz geometry: load / realign
+    exact; gemm and full within kernel B's 1e-4 (the raw GEMM of the
+    int16 octave 0 within the int16 bar 1e-3: unnormalized PCM sums);
+    full equal to the production kernel B."""
+    res = {"err": 0.0, "ms": {}, "plain_ms": {}}
+    g = np.random.default_rng(4)
+    small = torch.from_numpy(pcm16(g.uniform(-0.6, 0.6, (3, 16000))
+                                   .astype(np.float32))).to(device)
+    ps = C.CQTParams(sr=8000, hop=1600, bins_per_octave=12, octaves=3)
+    for yy, pp in ((small, ps), (y, p)):
+        octs = [probe_cqt_kernel_stages.octave_inputs(pp, yy, o,
+                                                      torch.bfloat16)
+                for o in range(pp.octaves)]
+        for o, (buf, st, bank_t, sc) in enumerate(octs):
+            for stage in K.STAGES:
+                got = K.octave_response_stage(buf, st, bank_t, sc, stage)
+                ref = K.octave_response_stage_plain(buf, st, bank_t, sc,
+                                                    stage)
+                name = f"stage {stage} octave {o} sr={pp.sr}"
+                if stage in ("load", "realign"):
+                    check_exact(name, got, ref)
+                    continue
+                tol = 1e-3 if (stage, o) == ("gemm", 0) else 1e-4
+                res["err"] = max(res["err"],
+                                 check_close(name, got, ref, tol, tol))
+            prod = torch.empty_like(got)
+            K.octave_response(buf, st, bank_t, sc, prod, 0)
+            check_exact(f"stage full vs kernel B octave {o}", got, prod)
+    for stage in K.STAGES:
+        def run(fn, stage=stage):
+            return lambda: [fn(*a, stage) for a in octs]
+        res["ms"][stage] = time_ms(run(K.octave_response_stage))
+        res["plain_ms"][stage] = time_ms(run(K.octave_response_stage_plain))
+    log("[5 probes] #6 kernel B stages, 8 octaves at serving geometry: "
+        + ", ".join(f"{s} {res['ms'][s]:.4f} ms (plain "
+                    f"{res['plain_ms'][s]:.4f})" for s in K.STAGES)
+        + f"; max|d| gemm/full {res['err']:.3g}; full == kernel B")
+    return res
+
+
+def check_transpose_pad(y: torch.Tensor) -> dict:
+    """#7, int16 and float32: the serving clips and an (8, 9001) batch
+    exact against the plain version; a refused geometry gives None."""
+    res = {}
+    small = y[:8, :9001].contiguous()
+    for yy in (small, small.float(), y, y.float()):
+        L = yy.shape[1]
+        got = PC.transpose_pad_tm(yy, (L // 4410) * 4410, 512)
+        lfull = PC.transpose_pad_geometry(yy, (L // 4410) * 4410, 512)
+        check_exact(f"transpose_pad {yy.dtype} {tuple(yy.shape)}", got,
+                    PC.transpose_pad_plain(yy, 256, lfull))
+    if PC.transpose_pad_tm(y[:, :2000], 0, 512) is not None:
+        raise AssertionError("transpose_pad_tm accepted a refused geometry")
+    lfull = PC.transpose_pad_geometry(y, (y.shape[1] // 4410) * 4410, 512)
+    res["ms"] = time_ms(lambda: PC.transpose_pad(y, 256, lfull))
+    res["plain_ms"] = time_ms(lambda: PC.transpose_pad_plain(y, 256, lfull))
+    log(f"[5 probes] #7 transpose_pad: int16 and f32 exact; serving int16 "
+        f"{res['ms']:.4f} ms vs plain {res['plain_ms']:.4f} ms")
+    return res
+
+
+def check_launch_and_primitives(device) -> dict:
+    """#8 at grid 1 / 25 / 201 and the six #9 probes, exact."""
+    x = torch.zeros(1 << 12, 512, dtype=torch.int16, device=device)
+    for grid_n in (1, 25, 201):
+        check_exact(f"launch_probe grid {grid_n}",
+                    PC.launch_probe(x, grid_n),
+                    PC.launch_probe_plain(x, grid_n))
+    res = {"launch_ms": time_ms(lambda: PC.launch_probe(x, 201)),
+           "launch_plain_ms": time_ms(lambda: PC.launch_probe_plain(x, 201)),
+           "prim_ms": 0.0, "prim_plain_ms": 0.0}
+    for name in PC.PRIMITIVES:
+        xi = PC.primitive_input(name).to(device)
+        check_exact(f"primitive {name}", PC.primitive(name, xi),
+                    PC.primitive_plain(name, xi))
+        res["prim_ms"] += time_ms(lambda: PC.primitive(name, xi))
+        res["prim_plain_ms"] += time_ms(lambda: PC.primitive_plain(name, xi))
+    log(f"[5 probes] #8 launch_probe grid 201: {res['launch_ms']:.4f} ms vs "
+        f"plain {res['launch_plain_ms']:.4f} ms; #9 six primitives exact, "
+        f"{res['prim_ms']:.4f} ms vs plain {res['prim_plain_ms']:.4f} ms")
+    return res
+
+
+PROBE_COUNTERS = (PC.window_copy, K.octave_response_stage, PC.transpose_pad,
+                  PC.launch_probe, PC.primitive)
+
+
+def drive_probes() -> dict:
+    """Each probe entry point once at the serving geometry (22050 Hz,
+    hop 4410, B = 16, 120 s; the launch probe at its smallest input),
+    with the probe kernels' launch counts read around the run."""
+    for fn in PROBE_COUNTERS:
+        fn.launches = 0
+    errs = probe_pallas_primitives.main()
+    probe_pallas_overhead.main(sizes=probe_pallas_overhead.SIZES[:1])
+    probe_dma_rate.main(sr=SR, clip=CLIP_SECONDS, batch=BATCH)
+    for octave in (0, 1):
+        probe_cqt_kernel_stages.main(sr=SR, clip=CLIP_SECONDS, batch=BATCH,
+                                     octave=octave)
+    experiment_transpose_kernel.main(batch=BATCH)
+    torch.cuda.synchronize()
+    launches = {fn.__name__: fn.launches for fn in PROBE_COUNTERS}
+    if any(e != 0.0 for e in errs.values()):
+        raise AssertionError(f"probe_pallas_primitives FAIL: {errs}")
+    if not all(launches.values()):
+        raise AssertionError(f"a probe entry point ran no kernel: {launches}")
+    log(f"[5 probes] entry points driven; launches {launches}")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -426,7 +566,7 @@ def main() -> int:
     _build.library()
     log(f"[2 build] {so.name} in {time.perf_counter() - t0:.1f} s")
     for line in so.with_suffix(".log").read_text().splitlines():
-        if "registers" in line or "spill" in line:
+        if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[2 build]   {line.strip()}")
 
     waves = clips()
@@ -444,9 +584,18 @@ def main() -> int:
             audio_io.write_wav(paths[-1], w, SR)
         srv = serve(paths, device)
 
+    y = torch.from_numpy(np.stack([pcm16(w) for w in waves])).to(device)
+    probe = {"window": check_window_copy(device),
+             "stages": check_stages(y, p, device),
+             "transpose": check_transpose_pad(y),
+             "small": check_launch_and_primitives(device)}
+    del y
+    m = drive_probes()
+
     src = "audio_key_estimation_torch/csrc/"
     tpu = "audio_key_estimation_tpu/ops/"
     n = srv["launches"]
+    st, sm = probe["stages"], probe["small"]
     kernels = [
         {"name": "cqt_decimate (kernel A)", "route": "cuda",
          "source": src + "cqt_decimate.cu",
@@ -463,6 +612,35 @@ def main() -> int:
          "replaces": tpu + "convstack_pallas.py:91",
          "launches": n["conv7_layer"], "max_abs_err": res["C"],
          "ms": res["C_ms"], "plain_ms": res["C_plain_ms"]},
+        {"name": "window_copy (#5, six variants; ms summed)",
+         "route": "cuda", "source": src + "probe_window_copy.cu",
+         "replaces": "scripts/probe_dma_rate.py:57",
+         "launches": m["window_copy"], "max_abs_err": 0.0,
+         "ms": probe["window"]["ms"],
+         "plain_ms": probe["window"]["plain_ms"]},
+        {"name": "cqt_response stages (#6, load/realign/gemm/full, "
+         "8 octaves; ms summed)", "route": "cuda",
+         "source": src + "cqt_response.cu",
+         "replaces": "scripts/probe_cqt_kernel_stages.py:59",
+         "launches": m["octave_response_stage"], "max_abs_err": st["err"],
+         "ms": sum(st["ms"].values()),
+         "plain_ms": sum(st["plain_ms"].values())},
+        {"name": "transpose_pad (#7)", "route": "cuda",
+         "source": src + "transpose_pad.cu",
+         "replaces": "scripts/experiment_transpose_kernel.py:82",
+         "launches": m["transpose_pad"], "max_abs_err": 0.0,
+         "ms": probe["transpose"]["ms"],
+         "plain_ms": probe["transpose"]["plain_ms"]},
+        {"name": "launch_probe (#8, grid 201)", "route": "cuda",
+         "source": src + "probe_launch.cu",
+         "replaces": "scripts/probe_pallas_overhead.py:50",
+         "launches": m["launch_probe"], "max_abs_err": 0.0,
+         "ms": sm["launch_ms"], "plain_ms": sm["launch_plain_ms"]},
+        {"name": "primitives (#9, six probes; ms summed)", "route": "cuda",
+         "source": src + "probe_primitives.cu",
+         "replaces": "scripts/probe_pallas_primitives.py:42-151",
+         "launches": m["primitive"], "max_abs_err": 0.0,
+         "ms": sm["prim_ms"], "plain_ms": sm["prim_plain_ms"]},
     ]
     log(card_line())
     log(json.dumps({"kernels": kernels}))

@@ -43,9 +43,9 @@ TINY = dict(octaves=3, num_layers=2, conv_layers=1, n_filters=2,
 
 
 def test_port_serves_without_jax(tmp_path):
-    """Import the port and serve one tiny WAV on the CPU in a fresh
-    interpreter: no jax/flax module may load, and only the JAX-free
-    reference modules."""
+    """Import the port (its probe entry points included) and serve one
+    tiny WAV on the CPU in a fresh interpreter: no jax/flax module may
+    load, and only the JAX-free reference modules."""
     code = textwrap.dedent(f"""
         import json, sys
         import numpy as np
@@ -55,7 +55,11 @@ def test_port_serves_without_jax(tmp_path):
         from audio_key_estimation_torch.data import audio_io
         from audio_key_estimation_torch.models import PitchClassNet
         from audio_key_estimation_torch.ops import cqt_cuda, convstack_cuda
+        from audio_key_estimation_torch.ops import probes_cuda
         from audio_key_estimation_torch.predict import KeyEstimator
+        from audio_key_estimation_torch.scripts import (
+            experiment_transpose_kernel, harness, probe_cqt_kernel_stages,
+            probe_dma_rate, probe_pallas_overhead, probe_pallas_primitives)
         cfg = Config(**{TINY!r})
         wav = {str(tmp_path / "a.wav")!r}
         t = np.arange(8000 * 2) / 8000
