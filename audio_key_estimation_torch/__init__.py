@@ -9,7 +9,8 @@ JAX-free modules `config`, `utils.key_signatures`, `utils.labels` and
 `native`.
 
 Layering (bottom -> top), module names mirror the JAX package:
-  csrc/       CUDA C++ kernels, built with nvcc at first use (ops/_build.py)
+  csrc/       CUDA C++ kernels (nvcc) and their torch.ops.akt operators
+              (bindings.cpp), built at first use (ops/_build.py)
   ops/        CQT front-end (plain PyTorch + cqt_cuda kernels A/B),
               equivariant convs, pooling, masked pooling, the fused
               ConvStack layer (convstack_cuda kernel C)

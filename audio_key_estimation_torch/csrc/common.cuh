@@ -1,16 +1,16 @@
 // Shared helpers for the port's hand-written Hopper kernels.
 //
 // Every kernel is reached through a plain C entry point (no PyTorch
-// headers, so nvcc builds the library in seconds) that launches on the
-// caller's stream and returns cudaGetLastError(); the Python wrappers in
-// ops/cqt_cuda.py and ops/convstack_cuda.py raise when it is not 0.
+// headers, so nvcc builds it in seconds) that launches on the caller's
+// stream and returns cudaGetLastError(); its operator in bindings.cpp
+// raises when that is not 0.
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-// dtype codes shared with the Python wrappers (ops/_build.py DTYPE_CODES)
+// dtype codes shared with the operators (bindings.cpp dtype_code)
 enum AktDtype { AKT_F32 = 0, AKT_BF16 = 1, AKT_I16 = 2 };
 
 // cudaError_t values are >= 0; unsupported argument combinations report

@@ -1,17 +1,21 @@
-"""Build and load the port's CUDA kernels (csrc/*.cu) at first use.
+"""Build and load the port's CUDA kernels (csrc/) as `torch.ops.akt`.
 
-nvcc compiles every source in `audio_key_estimation_torch/csrc/` for
-Hopper (sm_90a), one process per source, all started together, and links
-the objects into one shared library with a plain C interface, loaded
-with ctypes — no PyTorch headers, so the build takes seconds. The library
-lands in `audio_key_estimation_torch/_build/` (git-ignored) under a name
-that hashes the sources and flags, so an edited source always rebuilds.
+Every kernel source `csrc/*.cu` has a plain C launcher and includes no
+PyTorch header: nvcc compiles each for Hopper (sm_90a), one process per
+source, in seconds. `csrc/bindings.cpp`, the one file that sees PyTorch's
+(light) headers, defines an operator per launcher and registers its CUDA
+implementation; the host C++ compiler builds it against the installed
+torch, in parallel with nvcc. The objects are linked into one shared
+library against torch's libraries (rpath to `torch/lib`) and loaded with
+`torch.ops.load_library`. The library lands in
+`audio_key_estimation_torch/_build/` (git-ignored) under a name that
+hashes the sources, the flags, and the torch version and C++ ABI it was
+built against, so an edited source or another torch always rebuilds.
 Nothing here runs at import time: the CPU tests import every module.
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 import hashlib
 import os
@@ -26,39 +30,70 @@ CSRC = PKG / "csrc"
 BUILD_DIR = PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v")
+TORCH_LIBS = ("c10", "c10_cuda", "torch_cpu", "torch_cuda", "torch")
+# bindings.cpp's standard: the one torch.utils.cpp_extension passes in
+# torch 2.11 and 2.13. A torch whose headers need another fails that
+# file's compile, and build() raises with the compiler's report.
+HOST_STD = "-std=c++20"
 
-# dtype codes of csrc/common.cuh
-DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1, torch.int16: 2}
+# the dtypes the kernels read and write (csrc/common.cuh AktDtype)
+KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.int16)
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-_SIGNATURES = {
-    "akt_cascade_pad": [_P, _I, _LL, _I, _I, _P, _I, _LL, _I, _I, _I, _I,
-                        _P, _P],
-    "akt_octave_response": [_P, _I, _LL, _P, _I, _P, _P, _I, _I, _P, _LL,
-                            _I, _I, _P],
-    "akt_octave_response_stage": [_P, _I, _LL, _P, _I, _P, _P, _I, _I, _P,
-                                  _I, _I, _P],
-    "akt_conv7": [_P, _P, _P, _P, _I, _I, _I, _P],
-    "akt_window_copy": [_P, _LL, _I, _I, _P, _I, _I, _I, _I, _I, _I, _P,
-                        _P],
-    "akt_launch_probe": [_P, _P, _I, _I, _P],
-    "akt_transpose_pad": [_P, _I, _LL, _I, _I, _I, _I, _P, _P],
-    "akt_probe_primitive": [_I, _P, _P, _P],
-}
+
+def cuda_home() -> str:
+    return os.environ.get("CUDA_HOME") or "/usr/local/cuda"
 
 
 def _nvcc() -> str:
-    home = os.environ.get("CUDA_HOME") or "/usr/local/cuda"
-    for cand in (shutil.which("nvcc"), os.path.join(home, "bin", "nvcc")):
+    for cand in (shutil.which("nvcc"), os.path.join(cuda_home(), "bin",
+                                                    "nvcc")):
         if cand and os.path.exists(cand):
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME): the port's CUDA "
                        "kernels are built from csrc/ at first use")
 
 
+def _cxx() -> str:
+    return shutil.which("c++") or shutil.which("g++") or "c++"
+
+
+def host_flags() -> tuple[str, ...]:
+    """Host C++ flags for bindings.cpp: C++20, torch's C++ ABI, its
+    include directories (not the CUDA variant, which looks for a CUDA
+    install itself) and the CUDA runtime headers c10/cuda includes."""
+    import torch.utils.cpp_extension as ext
+    abi = int(torch._C._GLIBCXX_USE_CXX11_ABI)
+    incs = [*ext.include_paths(),
+            os.path.join(cuda_home(), "include")]
+    return (HOST_STD, "-O2", "-fPIC",
+            f"-D_GLIBCXX_USE_CXX11_ABI={abi}", *(f"-I{p}" for p in incs))
+
+
+def compile_command(src: Path, obj: Path, nvcc: str, cxx: str) -> list[str]:
+    """nvcc for sm_90a for a .cu source, the host compiler for .cpp."""
+    if src.suffix == ".cu":
+        return [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+    return [cxx, *host_flags(), "-c", "-o", str(obj), str(src)]
+
+
+def link_command(objs, so: Path, nvcc: str) -> list[str]:
+    """Link through nvcc, which links its CUDA runtime statically,
+    against torch's libraries, with an rpath to them."""
+    lib = str(Path(torch.__file__).resolve().parent / "lib")
+    return [nvcc, "-shared", "-o", str(so), *map(str, objs), f"-L{lib}",
+            *(f"-l{name}" for name in TORCH_LIBS), "-Xlinker",
+            f"-rpath={lib}"]
+
+
+def sources() -> list[Path]:
+    return sorted([*CSRC.glob("*.cu"), *CSRC.glob("*.cpp")])
+
+
 def library_path() -> Path:
-    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in sorted(CSRC.glob("*.cu*")):
+    """The library's path, named by a hash of everything it depends on."""
+    h = hashlib.sha256(" ".join((*NVCC_FLAGS, *host_flags(), *TORCH_LIBS,
+                                 torch.__version__)).encode())
+    for p in sorted(CSRC.glob("*.c*")):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return BUILD_DIR / f"libakt_kernels_{h.hexdigest()[:16]}.so"
@@ -66,16 +101,17 @@ def library_path() -> Path:
 
 def build() -> Path:
     """Compile csrc/ into the shared library unless it is already built;
-    the compiler's report (registers, spills) goes beside it as .log."""
+    the compilers' report (registers, spills) goes beside it as .log."""
     so = library_path()
     if so.exists():
         return so
     BUILD_DIR.mkdir(exist_ok=True)
     tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    srcs = sorted(CSRC.glob("*.cu"))
+    nvcc, cxx = _nvcc(), _cxx()
+    srcs = sources()
     objs = [tmp.with_name(f"{tmp.name}.{p.stem}.o") for p in srcs]
-    procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o),
-                               str(p)], stdout=subprocess.PIPE,
+    procs = [subprocess.Popen(compile_command(p, o, nvcc, cxx),
+                              stdout=subprocess.PIPE,
                               stderr=subprocess.STDOUT, text=True)
              for p, o in zip(srcs, objs)]
     report, failed = [], []
@@ -85,9 +121,8 @@ def build() -> Path:
         if proc.returncode != 0:
             failed.append(f"{p.name} ({proc.returncode}):\n{out}")
     if not failed:
-        res = subprocess.run([_nvcc(), "-shared", "-o", str(tmp),
-                              *map(str, objs)], capture_output=True,
-                             text=True)
+        res = subprocess.run(link_command(objs, tmp, nvcc),
+                             capture_output=True, text=True)
         report.append(f"== link\n{res.stdout}{res.stderr}")
         if res.returncode != 0:
             failed.append(f"link ({res.returncode}):\n{res.stderr}")
@@ -95,31 +130,26 @@ def build() -> Path:
         o.unlink(missing_ok=True)
     so.with_suffix(".log").write_text("".join(report))
     if failed:
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        raise RuntimeError("kernel build failed: " + "\n".join(failed))
     os.replace(tmp, so)
     return so
 
 
 @functools.lru_cache(maxsize=1)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first call."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    lib.akt_error_string.argtypes = [ctypes.c_int]
-    lib.akt_error_string.restype = ctypes.c_char_p
-    return lib
+def library():
+    """torch.ops.akt, after the kernel library is built and loaded."""
+    torch.ops.load_library(str(build()))
+    return torch.ops.akt
 
 
-def check(lib: ctypes.CDLL, rc: int, what: str) -> None:
-    """Raise when a C entry point reports a launch error."""
-    if rc != 0:
-        raise RuntimeError(
-            f"{what}: CUDA launch failed ({rc}): "
-            f"{lib.akt_error_string(rc).decode()}")
+@functools.cache
+def op(name: str):
+    """The operator overload torch.ops.akt.<name>.default, resolved once."""
+    return getattr(library(), name).default
 
 
-def stream_handle(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+def registered_ops() -> list[str]:
+    """The schemas of every akt operator the dispatcher knows."""
+    return [str(torch._C._dispatch_find_schema_or_throw(n, "").schema())
+            for n in sorted(torch._C._dispatch_get_all_op_names())
+            if n.startswith("akt::")]

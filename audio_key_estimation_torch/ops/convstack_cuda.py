@@ -82,11 +82,11 @@ def conv7_layer(x: torch.Tensor, weight: torch.Tensor,
     x (B, H, T, 8) bf16 channels-last; weight (8, ci, 7, 7) bf16 folded;
     bias (8,) float32.
     """
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return conv7_layer_plain(x, weight, bias)
     if not x.is_cuda:
         raise ValueError(f"conv7_layer: unsupported device {x.device}")
-    B, H, T, c = x.shape
+    _, H, T, c = x.shape
     if (x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16
             or c != C or not x.is_contiguous() or x.data_ptr() % 16
             or tuple(weight.shape[:1]) + tuple(weight.shape[2:]) != (C, 7, 7)
@@ -97,13 +97,7 @@ def conv7_layer(x: torch.Tensor, weight: torch.Tensor,
                          f"{tuple(weight.shape)}, bias {tuple(bias.shape)}")
     wp = pack_weight(weight)
     bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    y = torch.empty_like(x)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = lib.akt_conv7(x.data_ptr(), wp.data_ptr(), bias.data_ptr(),
-                           y.data_ptr(), B, H, T,
-                           _build.stream_handle(x.device))
-    _build.check(lib, rc, "conv7_layer (kernel C)")
+    y = _build.op("conv7")(x, wp, bias)
     conv7_layer.launches += 1
     return y
 

@@ -46,6 +46,9 @@ def padded_length(L: int, n_fft: int) -> int:
 
 
 def _require(cond: bool, msg: str) -> None:
+    """Raise ValueError(msg) unless cond. For a constant message; a check
+    whose message formats values is an `if ...: raise`, so the message is
+    built only on failure."""
     if not cond:
         raise ValueError(msg)
 
@@ -59,7 +62,8 @@ def cascade_pad_plain(buf, head, L_in, L_out, length, taps, out_dtype):
     ([head, head + L_in)), store at out_dtype, reflect-pad by
     (head, head + 1) and zero-extend to `length` rows."""
     y = downsample2(buf[:, head:head + L_in], taps, out_dtype=out_dtype)
-    _require(y.shape[1] == L_out, f"L_out={L_out} != {y.shape[1]}")
+    if y.shape[1] != L_out:
+        raise ValueError(f"L_out={L_out} != {y.shape[1]}")
     return pad_stream(y, head, length)
 
 
@@ -68,31 +72,27 @@ def cascade_pad(buf: torch.Tensor, head: int, L_in: int, L_out: int,
                 out_dtype: torch.dtype) -> torch.Tensor:
     """(B, Lpad_in) padded stream of octave o-1 -> (B, length) padded
     stream of octave o (kernel A on CUDA, its plain version on CPU)."""
-    if buf.device.type == "cpu":
+    if buf.is_cpu:
         return cascade_pad_plain(buf, head, L_in, L_out, length, taps,
                                  out_dtype)
-    _require(buf.is_cuda, f"cascade_pad: unsupported device {buf.device}")
-    _require(buf.dtype in _build.DTYPE_CODES,
-             f"cascade_pad: input dtype {buf.dtype}")
-    _require(out_dtype in _STREAM_DTYPES, f"cascade_pad: out {out_dtype}")
+    if not buf.is_cuda:
+        raise ValueError(f"cascade_pad: unsupported device {buf.device}")
+    if buf.dtype not in _build.KERNEL_DTYPES:
+        raise ValueError(f"cascade_pad: input dtype {buf.dtype}")
+    if out_dtype not in _STREAM_DTYPES:
+        raise ValueError(f"cascade_pad: out {out_dtype}")
     _require(buf.ndim == 2 and buf.stride(1) == 1,
              "cascade_pad: input rows must be contiguous")
-    _require(head + L_in <= buf.shape[1] and L_out == (L_in - 1) // 2 + 1
-             and length >= L_out + 2 * head + 1,
-             f"cascade_pad: geometry head={head} L_in={L_in} L_out={L_out} "
-             f"length={length} buf={tuple(buf.shape)}")
-    taps = np.ascontiguousarray(taps, np.float32)
-    _require(taps.shape == (49,), f"cascade_pad: taps {taps.shape}")
-    lib = _build.library()
-    out = torch.empty(buf.shape[0], length, dtype=out_dtype,
-                      device=buf.device)
-    with torch.cuda.device(buf.device):
-        rc = lib.akt_cascade_pad(
-            buf.data_ptr(), _build.DTYPE_CODES[buf.dtype], buf.stride(0),
-            head, L_in, out.data_ptr(), _build.DTYPE_CODES[out_dtype],
-            out.stride(0), head, L_out, length, buf.shape[0],
-            taps.ctypes.data, _build.stream_handle(buf.device))
-    _build.check(lib, rc, "cascade_pad (kernel A)")
+    if not (head + L_in <= buf.shape[1] and L_out == (L_in - 1) // 2 + 1
+            and length >= L_out + 2 * head + 1):
+        raise ValueError(f"cascade_pad: geometry head={head} L_in={L_in} "
+                         f"L_out={L_out} length={length} "
+                         f"buf={tuple(buf.shape)}")
+    taps = np.asarray(taps, np.float32)
+    if taps.shape != (49,):
+        raise ValueError(f"cascade_pad: taps {taps.shape}")
+    out = _build.op("cascade_pad")(buf, head, L_in, L_out, length,
+                                   taps.tolist(), out_dtype)
     cascade_pad.launches += 1
     return out
 
@@ -116,21 +116,22 @@ def octave_response(ypad: torch.Tensor, starts: torch.Tensor,
     Kernel B on CUDA, plain version on CPU.
     """
     bpo = bank_t.shape[0] // 2
-    if ypad.device.type == "cpu":
+    if ypad.is_cpu:
         out[:, row0:row0 + bpo] = octave_response_plain(
             ypad, starts, bank_t.T, scales)
         return
-    _require(ypad.is_cuda, f"octave_response: unsupported device "
-             f"{ypad.device}")
-    _require(ypad.dtype in _build.DTYPE_CODES,
-             f"octave_response: input dtype {ypad.dtype}")
+    if not ypad.is_cuda:
+        raise ValueError(f"octave_response: unsupported device "
+                         f"{ypad.device}")
+    if ypad.dtype not in _build.KERNEL_DTYPES:
+        raise ValueError(f"octave_response: input dtype {ypad.dtype}")
     _require(ypad.ndim == 2 and ypad.stride(1) == 1,
              "octave_response: stream rows must be contiguous")
     B, _, T = out.shape
-    n_fft = bank_t.shape[1]
-    _require(out.dtype == torch.float32 and out.is_contiguous()
-             and ypad.shape[0] == B and row0 + bpo <= out.shape[1],
-             f"octave_response: out {out.dtype} {tuple(out.shape)}")
+    if not (out.dtype == torch.float32 and out.is_contiguous()
+            and ypad.shape[0] == B and row0 + bpo <= out.shape[1]):
+        raise ValueError(f"octave_response: out {out.dtype} "
+                         f"{tuple(out.shape)}")
     _require(starts.dtype == torch.int32 and starts.shape == (T,)
              and starts.is_cuda, "octave_response: starts must be (T,) "
              "int32 on the device")
@@ -138,17 +139,10 @@ def octave_response(ypad: torch.Tensor, starts: torch.Tensor,
         _require(t.dtype == torch.float32 and t.is_contiguous()
                  and t.is_cuda, "octave_response: bank/scales must be "
                  "contiguous float32 on the device")
-    _require(bank_t.ndim == 2 and scales.shape == (bpo,),
-             f"octave_response: bank {tuple(bank_t.shape)}, scales "
-             f"{tuple(scales.shape)}")
-    lib = _build.library()
-    with torch.cuda.device(ypad.device):
-        rc = lib.akt_octave_response(
-            ypad.data_ptr(), _build.DTYPE_CODES[ypad.dtype], ypad.stride(0),
-            starts.data_ptr(), T, bank_t.data_ptr(), scales.data_ptr(), bpo,
-            n_fft, out.data_ptr(), out.stride(0), row0, B,
-            _build.stream_handle(ypad.device))
-    _build.check(lib, rc, "octave_response (kernel B)")
+    if not (bank_t.ndim == 2 and scales.shape == (bpo,)):
+        raise ValueError(f"octave_response: bank {tuple(bank_t.shape)}, "
+                         f"scales {tuple(scales.shape)}")
+    _build.op("octave_response")(ypad, starts, bank_t, scales, out, row0)
     octave_response.launches += 1
 
 
@@ -174,7 +168,8 @@ def octave_response_stage_plain(ypad: torch.Tensor, starts: torch.Tensor,
     n_fft = bank_t.shape[1]
     if stage == "full":
         return octave_response_plain(ypad, starts, bank_t.T, scales)
-    _require(stage in STAGES, f"stage {stage!r}: one of {STAGES}")
+    if stage not in STAGES:
+        raise ValueError(f"stage {stage!r}: one of {STAGES}")
     st = starts.to(ypad.device).long()
     if stage != "realign":
         st = st // _ALIGN * _ALIGN
@@ -193,18 +188,19 @@ def octave_response_stage(ypad: torch.Tensor, starts: torch.Tensor,
     on CUDA, the plain version on CPU). Same arguments and preconditions
     as `octave_response`; the aligned windows of load and gemm lie inside
     the exact ones' rows, since starts are >= 0."""
-    if ypad.device.type == "cpu":
+    if ypad.is_cpu:
         return octave_response_stage_plain(ypad, starts, bank_t, scales,
                                            stage)
-    _require(stage in STAGES, f"stage {stage!r}: one of {STAGES}")
-    _require(ypad.is_cuda, f"octave_response_stage: unsupported device "
-             f"{ypad.device}")
-    _require(ypad.dtype in _build.DTYPE_CODES and ypad.ndim == 2
-             and ypad.stride(1) == 1,
-             f"octave_response_stage: stream {ypad.dtype} "
-             f"{tuple(ypad.shape)} with contiguous rows")
+    if stage not in STAGES:
+        raise ValueError(f"stage {stage!r}: one of {STAGES}")
+    if not ypad.is_cuda:
+        raise ValueError(f"octave_response_stage: unsupported device "
+                         f"{ypad.device}")
+    if not (ypad.dtype in _build.KERNEL_DTYPES and ypad.ndim == 2
+            and ypad.stride(1) == 1):
+        raise ValueError(f"octave_response_stage: stream {ypad.dtype} "
+                         f"{tuple(ypad.shape)} with contiguous rows")
     bpo = bank_t.shape[0] // 2
-    T = starts.shape[0]
     _require(starts.dtype == torch.int32 and starts.ndim == 1
              and starts.is_cuda, "octave_response_stage: starts must be "
              "(T,) int32 on the device")
@@ -212,19 +208,12 @@ def octave_response_stage(ypad: torch.Tensor, starts: torch.Tensor,
         _require(t.dtype == torch.float32 and t.is_contiguous()
                  and t.is_cuda, "octave_response_stage: bank/scales must "
                  "be contiguous float32 on the device")
-    _require(bank_t.ndim == 2 and scales.shape == (bpo,),
-             f"octave_response_stage: bank {tuple(bank_t.shape)}, scales "
-             f"{tuple(scales.shape)}")
-    B = ypad.shape[0]
-    out = torch.empty(B, bpo, T, dtype=torch.float32, device=ypad.device)
-    lib = _build.library()
-    with torch.cuda.device(ypad.device):
-        rc = lib.akt_octave_response_stage(
-            ypad.data_ptr(), _build.DTYPE_CODES[ypad.dtype], ypad.stride(0),
-            starts.data_ptr(), T, bank_t.data_ptr(), scales.data_ptr(), bpo,
-            bank_t.shape[1], out.data_ptr(), STAGES.index(stage), B,
-            _build.stream_handle(ypad.device))
-    _build.check(lib, rc, f"octave_response_stage {stage} (kernel B)")
+    if not (bank_t.ndim == 2 and scales.shape == (bpo,)):
+        raise ValueError(f"octave_response_stage: bank "
+                         f"{tuple(bank_t.shape)}, scales "
+                         f"{tuple(scales.shape)}")
+    out = _build.op("octave_response_stage")(ypad, starts, bank_t, scales,
+                                             STAGES.index(stage))
     octave_response_stage.launches += 1
     return out
 
@@ -259,8 +248,8 @@ def cqt_cuda(y: torch.Tensor, p: CQTParams, *,
     """
     if y.ndim == 1:
         y = y[None]
-    _require(stream_dtype in _STREAM_DTYPES,
-             f"stream_dtype {stream_dtype}: float32 or bfloat16")
+    if stream_dtype not in _STREAM_DTYPES:
+        raise ValueError(f"stream_dtype {stream_dtype}: float32 or bfloat16")
     in_scale = input_scale(y)
     n_fft = kernel_bank(p)["n_fft"]
     head = n_fft // 2

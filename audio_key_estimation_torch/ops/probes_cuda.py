@@ -105,7 +105,8 @@ def window_copy_plain(x: torch.Tensor, starts: torch.Tensor, variant: str,
     """(t_pad / tile_t, tile_t, 1) float32: per step, 1.0 for `grid`, else
     x[0, offset of window 0 + i] for i < tile_t (the sample the TPU probe
     writes from frames[0, i, 0])."""
-    _require(variant in WINDOW_VARIANTS, f"variant {variant!r}")
+    if variant not in WINDOW_VARIANTS:
+        raise ValueError(f"variant {variant!r}")
     grid_n = starts.shape[0] // tile_t
     if variant == "grid":
         return torch.ones(grid_n, tile_t, 1, device=x.device)
@@ -132,10 +133,11 @@ def window_copy(x: torch.Tensor, starts: torch.Tensor, variant: str,
     [start // 16 * 16, + win) must lie inside the stream's rows. dma3_static
     reads the windows at (t * static_stride) // 16 * 16 instead (the TPU
     probe's 8816 is its 44.1 kHz hop rounded down to 16)."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return window_copy_plain(x, starts, variant, tile_t, win,
                                  static_stride)
-    _require(variant in WINDOW_VARIANTS, f"variant {variant!r}")
+    if variant not in WINDOW_VARIANTS:
+        raise ValueError(f"variant {variant!r}")
     _require(x.is_cuda and x.dtype == torch.int16 and x.ndim == 2
              and x.stride(1) == 1 and x.stride(0) % 8 == 0
              and x.data_ptr() % 16 == 0,
@@ -153,15 +155,9 @@ def window_copy(x: torch.Tensor, starts: torch.Tensor, variant: str,
                  "window_copy: dma3_static windows run past the stream")
     slots = 2 if variant == "dma3_db" else 1
     chunk = max(1, min(B, _SMEM_BUDGET // (slots * tile_t * win * 2)))
-    out = torch.empty(t_pad // tile_t, tile_t, 1, dtype=torch.float32,
-                      device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = lib.akt_window_copy(
-            x.data_ptr(), x.stride(0), Lpad, B, starts.data_ptr(), t_pad,
-            tile_t, win, chunk, WINDOW_VARIANTS.index(variant),
-            static_stride, out.data_ptr(), _build.stream_handle(x.device))
-    _build.check(lib, rc, f"window_copy {variant}")
+    out = _build.op("window_copy")(x, starts, tile_t, win, chunk,
+                                   WINDOW_VARIANTS.index(variant),
+                                   static_stride)
     window_copy.launches += 1
     return out
 
@@ -206,21 +202,14 @@ def transpose_pad_tm(y: torch.Tensor, last_start: int,
 
 def transpose_pad(y: torch.Tensor, half: int, lfull: int) -> torch.Tensor:
     """transpose_pad.cu on CUDA, its plain version on CPU."""
-    if y.device.type == "cpu":
+    if y.is_cpu:
         return transpose_pad_plain(y, half, lfull)
     _require(y.is_cuda and y.dtype in (torch.int16, torch.float32)
              and y.ndim == 2 and y.stride(1) == 1,
              "transpose_pad: y must be a CUDA int16/float32 (B, L) tensor "
              "with contiguous rows")
-    B, L = y.shape
-    _require(L >= half + 2, "transpose_pad: L < half + 2")
-    out = torch.empty(lfull, B, dtype=y.dtype, device=y.device)
-    lib = _build.library()
-    with torch.cuda.device(y.device):
-        rc = lib.akt_transpose_pad(
-            y.data_ptr(), _build.DTYPE_CODES[y.dtype], y.stride(0), B, L,
-            half, lfull, out.data_ptr(), _build.stream_handle(y.device))
-    _build.check(lib, rc, "transpose_pad")
+    _require(y.shape[1] >= half + 2, "transpose_pad: L < half + 2")
+    out = _build.op("transpose_pad")(y, half, lfull)
     transpose_pad.launches += 1
     return out
 
@@ -240,23 +229,41 @@ def launch_probe_plain(x: torch.Tensor, grid_n: int) -> torch.Tensor:
 def launch_probe(x: torch.Tensor, grid_n: int,
                  repeats: int = 1) -> torch.Tensor:
     """probe_launch.cu: grid_n blocks write ones and never read x; the
-    kernel is launched `repeats` times back to back from one C call."""
-    if x.device.type == "cpu":
+    kernel is launched `repeats` times back to back from one operator
+    call. Like torch.ones, a shape check and then the operator, which
+    allocates the output and launches on the current stream.
+
+    A call made while the stream is captured into a CUDA graph launches
+    nothing and is not counted: `launch_graph` counts the launches of
+    each replay."""
+    if x.is_cpu:
         return launch_probe_plain(x, grid_n)
-    _require(x.is_cuda and grid_n >= 1 and repeats >= 1,
-             f"launch_probe: CUDA input, grid_n >= 1, repeats >= 1 "
-             f"({x.device}, {grid_n}, {repeats})")
-    out = torch.empty(grid_n, 8, 128, dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = lib.akt_launch_probe(x.data_ptr(), out.data_ptr(), grid_n,
-                                  repeats, _build.stream_handle(x.device))
-    _build.check(lib, rc, "launch_probe")
-    launch_probe.launches += repeats
+    if not (x.is_cuda and grid_n >= 1 and repeats >= 1):
+        raise ValueError(f"launch_probe: CUDA input, grid_n >= 1, "
+                         f"repeats >= 1 ({x.device}, {grid_n}, {repeats})")
+    out = _build.op("launch_probe")(x, grid_n, repeats)
+    if not torch.cuda.is_current_stream_capturing():
+        launch_probe.launches += repeats
     return out
 
 
 launch_probe.launches = 0
+
+
+def launch_graph(x: torch.Tensor, grid_n: int, n: int):
+    """n launch_probe calls captured into one torch.cuda.CUDAGraph ->
+    (replay, outs): replay() replays the graph, n launches, and counts
+    them; outs are the n outputs, which live in the graph's memory pool
+    and are written only by a replay."""
+    launch_probe(x, grid_n)          # load the library before the capture
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [launch_probe(x, grid_n) for _ in range(n)]
+
+    def replay():
+        graph.replay()
+        launch_probe.launches += n
+    return replay, outs
 
 
 # ---------------------------------------------------------------------------
@@ -293,20 +300,17 @@ def primitive_plain(name: str, x: torch.Tensor) -> torch.Tensor:
 def primitive(name: str, x: torch.Tensor) -> torch.Tensor:
     """probe_primitives.cu kernel `name` on CUDA, its plain version on
     CPU."""
-    if x.device.type == "cpu":
+    if x.is_cpu:
         return primitive_plain(name, x)
-    _require(name in PRIMITIVES, f"primitive {name!r}")
+    if name not in PRIMITIVES:
+        raise ValueError(f"primitive {name!r}")
     shape, dtype, out_shape = PRIMITIVES[name]
-    _require(x.is_cuda and x.dtype == dtype and tuple(x.shape) == shape
-             and x.is_contiguous(),
-             f"primitive {name}: needs a contiguous CUDA {dtype} {shape}")
-    out = torch.empty(out_shape, dtype=torch.float32, device=x.device)
-    lib = _build.library()
-    with torch.cuda.device(x.device):
-        rc = lib.akt_probe_primitive(list(PRIMITIVES).index(name),
-                                     x.data_ptr(), out.data_ptr(),
-                                     _build.stream_handle(x.device))
-    _build.check(lib, rc, f"primitive {name}")
+    if not (x.is_cuda and x.dtype == dtype and tuple(x.shape) == shape
+            and x.is_contiguous()):
+        raise ValueError(f"primitive {name}: needs a contiguous CUDA "
+                         f"{dtype} {shape}")
+    out = _build.op("probe_primitive")(x, list(PRIMITIVES).index(name),
+                                       out_shape)
     primitive.launches += 1
     return out
 

@@ -6,7 +6,10 @@
 Phases (each prints a line; any failure raises, so the exit code is
 non-zero):
   1 device   require CUDA; print torch, the card and its power limit;
-  2 build    compile the hand-written kernels (csrc/*.cu) with nvcc;
+  2 build    compile the hand-written kernels (csrc/*.cu, nvcc) and their
+             operator bindings (csrc/bindings.cpp, the host compiler
+             against torch's headers), load them as torch.ops.akt and
+             list the registered operators;
   3 kernels  hold each kernel against its plain PyTorch version at the
              serving path's shapes (16 clips x 120 s PCM16 at 22050 Hz;
              the 5->8->8->8 ConvStack at (16, 288, 601)) and time both
@@ -20,7 +23,8 @@ non-zero):
   5 probes   the probe and experiment kernels (ops/probes_cuda.py and
              kernel B's stage split) against their plain versions at a
              small geometry and at the serving geometry, exact for the
-             copies; then each probe entry point
+             copies, and #8 replayed from a CUDA graph; then each probe
+             entry point
              (audio_key_estimation_torch/scripts/) driven once at the
              serving geometry, every probe kernel's launch count checked;
   6 result   the card line, the kernels JSON line, and the last line
@@ -502,15 +506,27 @@ def check_transpose_pad(y: torch.Tensor) -> dict:
 
 
 def check_launch_and_primitives(device) -> dict:
-    """#8 at grid 1 / 25 / 201 and the six #9 probes, exact."""
+    """#8 at grid 1 / 25 / 201, and 100 launches at grid 201 captured in
+    a CUDA graph whose replay must write the ones; the six #9 probes.
+    All exact."""
     x = torch.zeros(1 << 12, 512, dtype=torch.int16, device=device)
     for grid_n in (1, 25, 201):
         check_exact(f"launch_probe grid {grid_n}",
                     PC.launch_probe(x, grid_n),
                     PC.launch_probe_plain(x, grid_n))
+    ref = PC.launch_probe_plain(x, 201)
+    replay, outs = PC.launch_graph(x, 201, probe_pallas_overhead.BURST)
+    for o in outs:
+        o.zero_()
+    replay()
+    torch.cuda.synchronize()
+    for i, o in enumerate(outs):
+        check_exact(f"launch_probe graph replay, launch {i}", o, ref)
     res = {"launch_ms": time_ms(lambda: PC.launch_probe(x, 201)),
            "launch_plain_ms": time_ms(lambda: PC.launch_probe_plain(x, 201)),
+           "graph_ms": time_ms(replay) / len(outs),
            "prim_ms": 0.0, "prim_plain_ms": 0.0}
+    del replay, outs
     for name in PC.PRIMITIVES:
         xi = PC.primitive_input(name).to(device)
         check_exact(f"primitive {name}", PC.primitive(name, xi),
@@ -518,7 +534,9 @@ def check_launch_and_primitives(device) -> dict:
         res["prim_ms"] += time_ms(lambda: PC.primitive(name, xi))
         res["prim_plain_ms"] += time_ms(lambda: PC.primitive_plain(name, xi))
     log(f"[5 probes] #8 launch_probe grid 201: {res['launch_ms']:.4f} ms vs "
-        f"plain {res['launch_plain_ms']:.4f} ms; #9 six primitives exact, "
+        f"plain {res['launch_plain_ms']:.4f} ms; CUDA graph of "
+        f"{probe_pallas_overhead.BURST} launches replayed exactly, "
+        f"{res['graph_ms']:.5f} ms per launch; #9 six primitives exact, "
         f"{res['prim_ms']:.4f} ms vs plain {res['prim_plain_ms']:.4f} ms")
     return res
 
@@ -534,7 +552,7 @@ def drive_probes() -> dict:
     for fn in PROBE_COUNTERS:
         fn.launches = 0
     errs = probe_pallas_primitives.main()
-    probe_pallas_overhead.main(sizes=probe_pallas_overhead.SIZES[:1])
+    floor = probe_pallas_overhead.main(sizes=probe_pallas_overhead.SIZES[:1])
     probe_dma_rate.main(sr=SR, clip=CLIP_SECONDS, batch=BATCH)
     for octave in (0, 1):
         probe_cqt_kernel_stages.main(sr=SR, clip=CLIP_SECONDS, batch=BATCH,
@@ -547,6 +565,12 @@ def drive_probes() -> dict:
     if not all(launches.values()):
         raise AssertionError(f"a probe entry point ran no kernel: {launches}")
     log(f"[5 probes] entry points driven; launches {launches}")
+    log("[5 probes] #8 per launch (ms): " + ", ".join(
+        f"{k} {v:.5f}" for k, v in floor.items()
+        if isinstance(k, str) and k.startswith("burst")))
+    log("[5 probes] #8 host per call (us, one process): " + ", ".join(
+        f"{k[6:]} {v:.3f}" for k, v in floor.items()
+        if isinstance(k, str) and k.startswith("host, ")))
     return launches
 
 
@@ -565,6 +589,11 @@ def main() -> int:
     so = _build.build()
     _build.library()
     log(f"[2 build] {so.name} in {time.perf_counter() - t0:.1f} s")
+    ops = _build.registered_ops()
+    for schema in ops:
+        log(f"[2 build]   {schema}")
+    if len(ops) != 8:
+        raise AssertionError(f"expected 8 akt operators, found {len(ops)}")
     for line in so.with_suffix(".log").read_text().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[2 build]   {line.strip()}")
