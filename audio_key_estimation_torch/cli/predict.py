@@ -1,10 +1,12 @@
 """Prediction CLI — the serving face of the port.
 
     python -m audio_key_estimation_torch.cli.predict song.wav ... \\
-        --torch_ckpt best_model.pt [--device cuda] [config flags]
+        --torch_ckpt best_model.pt [--device cpu] [config flags]
 
 Prints, per input file, the estimated key (and genre when the model has a
 genre head). Architecture flags must match the checkpoint's training run.
+Serves on the CUDA card; on a machine without one it raises unless
+`--device cpu` is given.
 Loading a JAX-package run directory (orbax, --version) and the local
 timeline are later port items (ROADMAP.md port queue items 6 and 2).
 """
@@ -12,8 +14,6 @@ timeline are later port items (ROADMAP.md port queue items 6 and 2).
 from __future__ import annotations
 
 import argparse
-
-import torch
 
 from ..config import add_config_args, config_from_args
 from ..predict import KeyEstimator
@@ -29,8 +29,9 @@ def main(argv=None):
                         help="torch state_dict (reference best_model.pt or "
                              "an export of the port's / JAX package's "
                              "weights)")
-    parser.add_argument("--device", type=str,
-                        default="cuda" if torch.cuda.is_available() else "cpu")
+    parser.add_argument("--device", type=str, default="cuda",
+                        help="serve on this torch device; without CUDA "
+                             "only --device cpu runs")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     est = KeyEstimator.from_torch_checkpoint(args.torch_ckpt, cfg,

@@ -5,7 +5,9 @@
 // the one translation unit that sees PyTorch: it defines one operator per
 // launcher, with an explicit schema, and registers a CUDA implementation
 // of each. An implementation takes the device guard, allocates its output
-// with at::empty, launches on PyTorch's current stream (so a launch can be
+// with at::empty (kernels A and B write into their caller's tensor
+// instead, marked `Tensor(a!)`: cqt_cuda's stream arena and feature
+// tensor), launches on PyTorch's current stream (so a launch can be
 // captured into a torch.cuda.CUDAGraph) and turns a launcher's non-zero
 // return code into an error. No CPU implementation is registered: the
 // Python wrappers in ops/ run a kernel's plain version for a CPU tensor
@@ -29,14 +31,18 @@ int akt_cascade_pad(const void* in, int in_dtype, long long in_stride,
                     int head_in, int L_in, void* out, int out_dtype,
                     long long out_stride, int head_out, int L_out, int n_out,
                     int batch, const float* taps_host, void* stream);
-int akt_octave_response(const void* buf, int in_dtype, long long buf_stride,
-                        const int* starts, int n_frames, const float* bank,
-                        const float* scales, int bpo, int n_fft, float* out,
-                        long long out_stride, int row0, int batch,
+int akt_octave_response(const void* x0, int x0_dtype, long long x0_stride,
+                        const void* arena, int arena_dtype,
+                        long long arena_stride, const long long* offsets,
+                        const int* lengths, int n_oct, const int* starts,
+                        int n_frames, const float* bank_hi,
+                        const float* bank_lo, const float* scales, int bpo,
+                        int n_fft, float* out, long long out_stride, int batch,
                         void* stream);
 int akt_octave_response_stage(const void* buf, int in_dtype,
-                              long long buf_stride, const int* starts,
-                              int n_frames, const float* bank,
+                              long long buf_stride, int length,
+                              const int* starts, int n_frames,
+                              const float* bank_hi, const float* bank_lo,
                               const float* scales, int bpo, int n_fft,
                               float* out, int stage, int batch, void* stream);
 int akt_conv7(const void* x, const void* w_packed, const float* bias,
@@ -85,55 +91,65 @@ void same_device(const at::Tensor& first,
                 t->device());
 }
 
-at::Tensor cascade_pad(const at::Tensor& buf, int64_t head, int64_t L_in,
-                       int64_t L_out, int64_t length, c10::ArrayRef<double> taps,
-                       c10::ScalarType out_dtype) {
-  same_device(buf, {}, "akt::cascade_pad");
+void cascade_pad(const at::Tensor& buf, int64_t head, int64_t L_in,
+                 int64_t L_out, const at::Tensor& out,
+                 c10::ArrayRef<double> taps) {
+  same_device(buf, {&out}, "akt::cascade_pad");
   TORCH_CHECK(static_cast<int>(taps.size()) == kTaps,
               "akt::cascade_pad: ", kTaps, " taps, got ", taps.size());
   const c10::cuda::CUDAGuard guard(buf.device());
   const std::vector<float> t(taps.begin(), taps.end());
-  at::Tensor out = at::empty({buf.size(0), length},
-                             buf.options().dtype(out_dtype));
   check_rc(akt_cascade_pad(buf.data_ptr(), dtype_code(buf.scalar_type()),
                            buf.stride(0), head, L_in, out.data_ptr(),
-                           dtype_code(out_dtype), out.stride(0), head, L_out,
-                           length, buf.size(0), t.data(), stream()),
+                           dtype_code(out.scalar_type()), out.stride(0), head,
+                           L_out, out.size(1), buf.size(0), t.data(),
+                           stream()),
            "cascade_pad (kernel A)");
-  return out;
 }
 
-void octave_response(const at::Tensor& ypad, const at::Tensor& starts,
-                     const at::Tensor& bank_t, const at::Tensor& scales,
-                     const at::Tensor& out, int64_t row0) {
-  same_device(ypad, {&starts, &bank_t, &scales, &out},
+void octave_response(const at::Tensor& x0, const at::Tensor& arena,
+                     c10::IntArrayRef offsets, c10::IntArrayRef lengths,
+                     const at::Tensor& starts, const at::Tensor& bank_hi,
+                     const at::Tensor& bank_lo, const at::Tensor& scales,
+                     const at::Tensor& out) {
+  same_device(x0, {&arena, &starts, &bank_hi, &bank_lo, &scales, &out},
               "akt::octave_response");
-  const c10::cuda::CUDAGuard guard(ypad.device());
+  const int64_t n_oct = starts.size(0);
+  TORCH_CHECK(static_cast<int64_t>(offsets.size()) == n_oct &&
+                  static_cast<int64_t>(lengths.size()) == n_oct,
+              "akt::octave_response: one offset and length per octave");
+  const c10::cuda::CUDAGuard guard(x0.device());
+  const std::vector<long long> off(offsets.begin(), offsets.end());
+  const std::vector<int> len(lengths.begin(), lengths.end());
   check_rc(akt_octave_response(
-               ypad.data_ptr(), dtype_code(ypad.scalar_type()),
-               ypad.stride(0), starts.data_ptr<int>(), out.size(2),
-               bank_t.data_ptr<float>(), scales.data_ptr<float>(),
-               bank_t.size(0) / 2, bank_t.size(1), out.data_ptr<float>(),
-               out.stride(0), row0, out.size(0), stream()),
+               x0.data_ptr(), dtype_code(x0.scalar_type()), x0.stride(0),
+               arena.data_ptr(), dtype_code(arena.scalar_type()),
+               arena.stride(0), off.data(), len.data(), n_oct,
+               starts.data_ptr<int>(), starts.size(1),
+               bank_hi.data_ptr<float>(), bank_lo.data_ptr<float>(),
+               scales.data_ptr<float>(), scales.size(1), bank_hi.size(0) * 8,
+               out.data_ptr<float>(), out.stride(0), out.size(0), stream()),
            "octave_response (kernel B)");
 }
 
 at::Tensor octave_response_stage(const at::Tensor& ypad,
                                  const at::Tensor& starts,
-                                 const at::Tensor& bank_t,
+                                 const at::Tensor& bank_hi,
+                                 const at::Tensor& bank_lo,
                                  const at::Tensor& scales, int64_t stage) {
-  same_device(ypad, {&starts, &bank_t, &scales},
+  same_device(ypad, {&starts, &bank_hi, &bank_lo, &scales},
               "akt::octave_response_stage");
   const c10::cuda::CUDAGuard guard(ypad.device());
-  const int64_t bpo = bank_t.size(0) / 2;
+  const int64_t bpo = scales.size(0);
   at::Tensor out = at::empty({ypad.size(0), bpo, starts.size(0)},
                              ypad.options().dtype(at::kFloat));
   check_rc(akt_octave_response_stage(
                ypad.data_ptr(), dtype_code(ypad.scalar_type()),
-               ypad.stride(0), starts.data_ptr<int>(), starts.size(0),
-               bank_t.data_ptr<float>(), scales.data_ptr<float>(), bpo,
-               bank_t.size(1), out.data_ptr<float>(), stage, ypad.size(0),
-               stream()),
+               ypad.stride(0), ypad.size(1), starts.data_ptr<int>(),
+               starts.size(0), bank_hi.data_ptr<float>(),
+               bank_lo.data_ptr<float>(), scales.data_ptr<float>(), bpo,
+               bank_hi.size(0) * 8, out.data_ptr<float>(), stage,
+               ypad.size(0), stream()),
            "octave_response_stage (kernel B)");
   return out;
 }
@@ -204,12 +220,13 @@ at::Tensor probe_primitive(const at::Tensor& x, int64_t which,
 }  // namespace
 
 TORCH_LIBRARY(akt, m) {
-  m.def("cascade_pad(Tensor buf, int head, int L_in, int L_out, int length, "
-        "float[] taps, ScalarType out_dtype) -> Tensor");
-  m.def("octave_response(Tensor ypad, Tensor starts, Tensor bank_t, "
-        "Tensor scales, Tensor(a!) out, int row0) -> ()");
-  m.def("octave_response_stage(Tensor ypad, Tensor starts, Tensor bank_t, "
-        "Tensor scales, int stage) -> Tensor");
+  m.def("cascade_pad(Tensor buf, int head, int L_in, int L_out, "
+        "Tensor(a!) out, float[] taps) -> ()");
+  m.def("octave_response(Tensor x0, Tensor arena, int[] offsets, "
+        "int[] lengths, Tensor starts, Tensor bank_hi, Tensor bank_lo, "
+        "Tensor scales, Tensor(a!) out) -> ()");
+  m.def("octave_response_stage(Tensor ypad, Tensor starts, Tensor bank_hi, "
+        "Tensor bank_lo, Tensor scales, int stage) -> Tensor");
   m.def("conv7(Tensor x, Tensor w_packed, Tensor bias) -> Tensor");
   m.def("window_copy(Tensor x, Tensor starts, int tile_t, int win, "
         "int chunk, int variant, int static_stride) -> Tensor");

@@ -22,8 +22,6 @@ from typing import List, Mapping, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from audio_key_estimation_tpu.utils.key_signatures import KEY_SIGNATURE_MAP
-
 from .config import Config
 from .data import audio_io
 from .data.loaders import A_GENRES
@@ -31,6 +29,7 @@ from .models.convert import load_state_dict
 from .models.pitchclassnet import PitchClassNet, check_supported
 from .ops.cqt import CQTParams, reference_hop
 from .ops.frontend import compute_cqt, use_cuda_kernels
+from .utils.key_signatures import KEY_SIGNATURE_MAP
 
 NOTE_NAMES = ['C', 'C#', 'D', 'D#', 'E', 'F', 'F#', 'G', 'G#', 'A', 'A#', 'B']
 # major tonic of circle-of-fifths row i (0 = Cb); theoretical rows 15..20
@@ -77,14 +76,17 @@ class KeyEstimator:
     """
 
     def __init__(self, cfg: Config, state_dict: Mapping, *,
-                 device: Union[str, torch.device] = "cpu",
+                 device: Union[str, torch.device] = "cuda",
                  bucket_seconds=(60, 180, 420)):
         """state_dict: the port's / the reference's torch state_dict or
         `models.convert.state_dict_from_jax` of JAX variables (numpy
-        arrays or tensors)."""
+        arrays or tensors). Serving runs on the card; the CPU only when
+        the caller asks for it (device="cpu"). Without CUDA the default
+        raises."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(f"device={device!r}: CUDA is not available")
+            raise RuntimeError(f"device={device!r}: CUDA is not available "
+                               "(pass device='cpu' to serve on the CPU)")
         # serving is global mode, as in the JAX package
         self.cfg = cfg.replace(local=False)
         check_supported(self.cfg)

@@ -13,7 +13,7 @@ csrc/cqt_response.cu), same grid, same window staging:
 the bank staging and FMA, (full - gemm) the epilogue. The window bytes
 are set against the card's own copy rate, measured here as a
 device-to-device copy of the octave's stream. Octave o > 0 streams come
-from kernel A (cqt_cuda.cascade_pad) at AKX_STREAM_DTYPE. Times are CUDA
+from kernel A (cqt_cuda.cascade_arena) at AKX_STREAM_DTYPE. Times are CUDA
 events: a warm-up, then the median of AKX_REPS runs.
 
 Run on the card:  AKX_B=512 AKX_OCTAVE=0 python -m audio_key_estimation_torch.scripts.probe_cqt_kernel_stages
@@ -26,10 +26,8 @@ import os
 import torch
 
 from audio_key_estimation_torch.ops import cqt_cuda as K
-from audio_key_estimation_torch.ops.cqt import (CQTParams, _frame_starts,
-                                                bank_matrix, decimation_taps,
-                                                kernel_bank, octave_scales,
-                                                pad_stream, stream_lengths)
+from audio_key_estimation_torch.ops.cqt import (CQTParams, kernel_bank,
+                                                pad_stream)
 from audio_key_estimation_torch.scripts.harness import (card_line, log,
                                                         require_cuda, time_ms)
 
@@ -44,24 +42,18 @@ _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 def octave_inputs(p: CQTParams, y: torch.Tensor, octave: int,
                   stream_dtype: torch.dtype):
-    """(padded stream, starts, bank_t, scales) of one octave of int16
-    clips y, the stream built as cqt_cuda builds it."""
+    """(padded stream, starts, bank, scales) of one octave of int16 clips
+    y, the stream built as cqt_cuda builds it (a slice of kernel A's
+    arena for octave > 0), the constants cqt_cuda's."""
     n_fft = kernel_bank(p)["n_fft"]
     head = n_fft // 2
     in_scale = 1.0 / 32768.0
-    lens = stream_lengths(y.shape[1], octave + 1)
-    buf = pad_stream(y, head, K.padded_length(lens[0], n_fft))
-    for o in range(1, octave + 1):
-        buf = K.cascade_pad(buf, head, lens[o - 1], lens[o],
-                            K.padded_length(lens[o], n_fft),
-                            decimation_taps(o, in_scale), stream_dtype)
-    n_frames = 1 + y.shape[1] // p.hop
-    dev = y.device
-    starts = torch.tensor(_frame_starts(p.hop, octave, n_frames),
-                          dtype=torch.int32, device=dev)
-    bank_t = torch.as_tensor(bank_matrix(p).T.copy(), device=dev)
-    scales = torch.as_tensor(octave_scales(p, octave, in_scale), device=dev)
-    return buf, starts, bank_t, scales
+    layout = K.arena_layout(y.shape[1], octave + 1, n_fft)
+    x0 = pad_stream(y, head, layout.lengths[0])
+    arena = K.cascade_arena(x0, layout, head, in_scale, stream_dtype)
+    c = K._constants(p, 1 + y.shape[1] // p.hop, in_scale, str(y.device))
+    return (K.octave_streams(x0, arena, layout)[octave], c.starts[octave],
+            c.bank, c.scales[octave])
 
 
 def main(sr: int = SR, clip: int = CLIP_SECONDS, batch: int = B,
@@ -76,7 +68,7 @@ def main(sr: int = SR, clip: int = CLIP_SECONDS, batch: int = B,
     g = torch.Generator(device=device).manual_seed(0)
     y = (torch.randn(batch, L, generator=g, device=device) * 8000).clamp(
         -32768, 32767).to(torch.int16)
-    buf, starts, bank_t, scales = octave_inputs(p, y, octave, sd)
+    buf, starts, bank, scales = octave_inputs(p, y, octave, sd)
     del y
     T = starts.shape[0]
     item = buf.element_size()
@@ -94,7 +86,7 @@ def main(sr: int = SR, clip: int = CLIP_SECONDS, batch: int = B,
         f"{rate:.0f} GB/s (read + write of the stream)")
     for stage in K.STAGES:
         res[stage] = time_ms(lambda: K.octave_response_stage(
-            buf, starts, bank_t, scales, stage), reps)
+            buf, starts, bank, scales, stage), reps)
         log(f"  {stage:8s}: {res[stage]:9.4f} ms")
     log(f"deltas: realign {res['realign'] - res['load']:.4f} ms, "
         f"bank+gemm {res['gemm'] - res['load']:.4f} ms, "

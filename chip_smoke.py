@@ -11,15 +11,22 @@ non-zero):
              against torch's headers), load them as torch.ops.akt and
              list the registered operators;
   3 kernels  hold each kernel against its plain PyTorch version at the
-             serving path's shapes (16 clips x 120 s PCM16 at 22050 Hz;
-             the 5->8->8->8 ConvStack at (16, 288, 601)) and time both
-             with CUDA events (warm-up, median of 20); then small edge
-             geometries (odd B, other rates, n_fft 8192, T = H = 3);
+             serving path's shapes (16 clips x 120 s PCM16 at 22050 Hz:
+             kernel A's 7 octave steps into the stream arena, kernel B's
+             one launch over all 8 octaves; the 5->8->8->8 ConvStack at
+             (16, 288, 601)) and time both with CUDA events (warm-up,
+             median of 20; kernels A, B, C also replayed from a CUDA
+             graph, the card's time without the host's), beside the
+             library call that computes the
+             same function where there is one, and the bound from the
+             shapes (bytes over 3.35 TB/s or operations over the peak of
+             their type); then small edge geometries (odd B, other rates,
+             n_fft 8192, T = H = 3);
   4 serve    KeyEstimator(Config(fused_convstack=True), seeded weights,
              device="cuda").predict_files on 16 PCM16 WAVs, with every
-             kernel's launch count checked, against the plain path
-             (use_pallas_cqt="off", fused_convstack=False) on the card
-             and, for two 10 s clips, on the CPU;
+             kernel's launch count checked (A 7, B 1, C 3), against the
+             plain path (use_pallas_cqt="off", fused_convstack=False) on
+             the card and, for two 10 s clips, on the CPU;
   5 probes   the probe and experiment kernels (ops/probes_cuda.py and
              kernel B's stage split) against their plain versions at a
              small geometry and at the serving geometry, exact for the
@@ -50,6 +57,7 @@ from audio_key_estimation_torch.ops import _build
 from audio_key_estimation_torch.ops import convstack_cuda as CS
 from audio_key_estimation_torch.ops import cqt as C
 from audio_key_estimation_torch.ops import cqt_cuda as K
+from audio_key_estimation_torch.ops import equivariant
 from audio_key_estimation_torch.ops import probes_cuda as PC
 from audio_key_estimation_torch.predict import KeyEstimator
 from audio_key_estimation_torch.scripts import (experiment_transpose_kernel,
@@ -110,47 +118,127 @@ def check_close(name, got, ref, rtol, atol) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+# NVIDIA H100 SXM published peaks (the on-chip-measurement guide's table)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12          # float32 outside the tensor cores
+BF16_FLOPS = 989e12        # bf16 tensor cores, dense
+
+
+def bound(nbytes: float, flops: float = 0.0,
+          peak: float = F32_FLOPS) -> dict:
+    """The least time the card could take: bytes over the memory rate or
+    operations over the peak rate of their type, whichever is larger."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / peak
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3,
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def share(r: dict, key: str) -> str:
+    return (f"bound {r[key + '_bound_ms']:.4f} ms ({r[key + '_bound_by']}), "
+            f"{r[key + '_bound_ms'] / r[key + '_ms']:.0%} of it")
+
+
+def put_bound(res: dict, key: str, b: dict) -> None:
+    res[key + "_bound_ms"], res[key + "_bound_by"] = b["bound_ms"], \
+        b["bound_by"]
+
+
+def graph_ms(fn, reps: int = 20) -> float:
+    """The card's time for fn's launches: fn captured once into a CUDA
+    graph and the replay timed (CUDA events, median of reps), so no host
+    time between launches is counted. One eager call (time_ms) also
+    counts the host's time in the wrappers, which at these sizes can
+    exceed the kernels' own."""
+    fn()                                  # outside the capture: warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return time_ms(graph.replay, reps)
+
+
+def window_cover(starts, n_fft: int) -> int:
+    """Samples the windows [s, s + n_fft) of ascending starts cover."""
+    st = np.asarray(starts, np.int64)
+    return int(n_fft + np.minimum(np.diff(st), n_fft).sum())
+
+
+def cqt_bounds(y, p, lay, stream_dtype, starts) -> tuple[dict, dict]:
+    """Bounds of kernel A's 7 steps and of kernel B's launch at this
+    geometry: A reads each interior once and writes each padded stream
+    (49 multiply-adds per computed row, f32); B reads the samples the
+    windows cover, the bank's two parts and the tables, writes the
+    features, and does the float32 GEMM (2 * 2bpo * n_fft per frame)."""
+    n_fft = C.kernel_bank(p)["n_fft"]
+    head = n_fft // 2
+    B = y.shape[0]
+    T = starts.shape[1]
+    item = torch.tensor([], dtype=stream_dtype).element_size()
+    steps = []
+    for o in range(1, p.octaves):
+        nbytes = B * lay.lens[o - 1] * (y.element_size() if o == 1
+                                        else item) + B * lay.lengths[o] * item
+        steps.append((nbytes, 2 * 49 * B * (lay.lens[o] + 2 * head + 1)))
+    a_bytes, a_flops = map(sum, zip(*steps))
+    b_bytes = 2 * n_fft * 72 * 4 + starts.numel() * 4 \
+        + p.octaves * p.bins_per_octave * 4 + B * p.n_bins * T * 4
+    for o in range(p.octaves):
+        b_bytes += B * window_cover(starts[o].tolist(), n_fft) * (
+            y.element_size() if o == 0 else item)
+    b_flops = p.octaves * 2 * B * T * 2 * p.bins_per_octave * n_fft
+    a = bound(a_bytes, a_flops)
+    # each step's bytes and FMA times (ms), what its card time is set against
+    a["steps"] = [(nb / HBM_BYTES_PER_S * 1e3, nf / F32_FLOPS * 1e3)
+                  for nb, nf in steps]
+    return a, bound(b_bytes, b_flops)
+
+
 def check_cqt_kernels(y: torch.Tensor, p: C.CQTParams) -> dict:
-    """Kernels A and B on every octave, f32 and bf16 streams, then the
-    whole cqt_cuda against the plain cqt."""
+    """Kernel A on every octave step and kernel B's one launch on every
+    octave, f32 and bf16 streams from int16 clips, each against its plain
+    version on the same inputs; then the whole cqt_cuda against the plain
+    cqt. Times, bounds and the library yardsticks on the serving
+    configuration (bf16 streams)."""
     n_fft = C.kernel_bank(p)["n_fft"]
     head = n_fft // 2
     B, L = y.shape
     n_frames = 1 + L // p.hop
-    lens = C.stream_lengths(L, p.octaves)
+    lay = K.arena_layout(L, p.octaves, n_fft)
     in_scale = C.input_scale(y)
-    bank_t, starts, scales = K._constants(p, n_frames, in_scale, str(y.device))
+    c = K._constants(p, n_frames, in_scale, str(y.device))
+    bpo = p.bins_per_octave
     res = {"A": 0.0, "B": 0.0}
+    x0 = C.pad_stream(y, head, lay.lengths[0])
     for sd in (torch.float32, torch.bfloat16):
-        buf = C.pad_stream(y, head, K.padded_length(L, n_fft))
-        chain = [buf]
+        arena = K.cascade_arena(x0, lay, head, in_scale, sd)
+        streams = K.octave_streams(x0, arena, lay)
+        for o in range(1, p.octaves):
+            got = streams[o]
+            ref = K.cascade_pad_plain(streams[o - 1], head, lay.lens[o - 1],
+                                      lay.lens[o], lay.lengths[o],
+                                      C.decimation_taps(o, in_scale), sd)
+            if sd == torch.float32:
+                err = check_close(f"kernel A f32 octave {o}", got, ref,
+                                  1e-5, 1e-6)
+            else:
+                ulps = bf16_ulps(got, ref)
+                if ulps > 1:
+                    raise AssertionError(
+                        f"kernel A bf16 octave {o}: {ulps} ulps")
+                err = float((got.float() - ref.float()).abs().max())
+            res["A"] = max(res["A"], err)
+        out = torch.full((B, p.n_bins, n_frames), float("nan"),
+                         device=y.device)
+        K.octave_response(x0, arena, lay, c.starts, c.bank, c.scales, out)
+        ref = torch.empty_like(out)
+        K.octave_response_arena_plain(x0, arena, lay, c.starts, c.bank,
+                                      c.scales, ref)
+        errs = []
         for o in range(p.octaves):
-            if o > 0:
-                args = (buf, head, lens[o - 1], lens[o],
-                        K.padded_length(lens[o], n_fft),
-                        C.decimation_taps(o, in_scale), sd)
-                got = K.cascade_pad(*args)
-                ref = K.cascade_pad_plain(*args)
-                if sd == torch.float32:
-                    err = check_close(f"kernel A f32 octave {o}", got, ref,
-                                      1e-5, 1e-6)
-                else:
-                    ulps = bf16_ulps(got, ref)
-                    if ulps > 1:
-                        raise AssertionError(
-                            f"kernel A bf16 octave {o}: {ulps} ulps")
-                    err = float((got.float() - ref.float()).abs().max())
-                res["A"] = max(res["A"], err)
-                buf = got
-                chain.append(buf)
-            out = torch.empty(B, p.n_bins, n_frames, device=y.device)
-            row0 = (p.octaves - 1 - o) * p.bins_per_octave
-            K.octave_response(buf, starts[o], bank_t, scales[o], out, row0)
-            ref = K.octave_response_plain(buf, starts[o], bank_t.T,
-                                          scales[o])
-            got = out[:, row0:row0 + p.bins_per_octave]
-            res["B"] = max(res["B"], check_close(
-                f"kernel B {sd} octave {o}", got, ref, 1e-4, 1e-4))
+            rows = slice((p.octaves - 1 - o) * bpo, (p.octaves - o) * bpo)
+            errs.append(check_close(f"kernel B {sd} octave {o}", out[:, rows],
+                                    ref[:, rows], 1e-4, 1e-4))
+        res["B"] = max(res["B"], *errs)
         got = K.cqt_cuda(y, p, stream_dtype=sd)
         ref = C.cqt(y, p, stream_dtype=sd)
         if sd == torch.float32:
@@ -161,42 +249,84 @@ def check_cqt_kernels(y: torch.Tensor, p: C.CQTParams) -> dict:
                 raise AssertionError(f"cqt_cuda bf16: max |d| {err:.3g} > "
                                      f"2% of peak {float(ref.abs().max())}")
         res[f"cqt_{'f32' if sd == torch.float32 else 'bf16'}"] = err
-        log(f"[3 kernels] cqt_cuda vs plain cqt, {sd} streams: "
-            f"max|d| {err:.3g} (peak {float(ref.abs().max()):.3f})")
+        log(f"[3 kernels] {sd} streams: kernel B max|d| per octave "
+            + ", ".join(f"{e:.3g}" for e in errs)
+            + f"; cqt_cuda vs plain cqt max|d| {err:.3g} "
+            f"(peak {float(ref.abs().max()):.3f})")
 
-    # timings on the serving configuration: the bf16-stream chain just built
+    # timings on the serving configuration: the bf16-stream arena above
 
-    def run_a(fn):
+    def a_steps(fn):
         def go():
             for o in range(1, p.octaves):
-                fn(chain[o - 1], head, lens[o - 1], lens[o],
-                   K.padded_length(lens[o], n_fft),
-                   C.decimation_taps(o, in_scale), sd)
+                fn(streams[o - 1], head, lay.lens[o - 1], lay.lens[o],
+                   streams[o], C.decimation_taps(o, in_scale))
         return go
 
-    out = torch.empty(B, p.n_bins, n_frames, device=y.device)
+    def a_plain():
+        for o in range(1, p.octaves):
+            K.cascade_pad_plain(streams[o - 1], head, lay.lens[o - 1],
+                                lay.lens[o], lay.lengths[o],
+                                C.decimation_taps(o, in_scale), sd)
 
-    def b_kernel():
-        for o in range(p.octaves):
-            K.octave_response(chain[o], starts[o], bank_t, scales[o], out,
-                              (p.octaves - 1 - o) * p.bins_per_octave)
+    # library yardstick of A: one stride-2 conv1d per step on the
+    # zero-padded interior (no reflect rows), in the stream's dtype
+    # (octave 0's int16 converted to float32 beforehand)
+    conv_in = []
+    for o in range(1, p.octaves):
+        src = streams[o - 1][:, head:head + lay.lens[o - 1]]
+        src = src.float() if src.dtype == torch.int16 else src
+        taps = torch.as_tensor(C.decimation_taps(o, in_scale),
+                               device=y.device).to(src.dtype)
+        conv_in.append((torch.nn.functional.pad(src, (24, 24))[:, None]
+                        .contiguous(), taps[None, None]))
 
-    def b_plain():
-        for o in range(p.octaves):
-            K.octave_response_plain(chain[o], starts[o], bank_t.T, scales[o])
+    def a_library():
+        for xi, w in conv_in:
+            torch.nn.functional.conv1d(xi, w, stride=2)
 
-    res["A_ms"] = time_ms(run_a(K.cascade_pad))
-    res["A_plain_ms"] = time_ms(run_a(K.cascade_pad_plain))
-    res["B_ms"] = time_ms(b_kernel)
-    res["B_plain_ms"] = time_ms(b_plain)
+    # GEMM-only yardstick of B: every octave's frames pre-gathered, one
+    # float32 cuBLAS product with the [cos|sin] bank (TF32 off)
+    idx = c.starts.long()[..., None] + torch.arange(n_fft, device=y.device)
+    frames = torch.stack([s[:, idx[o]].float()
+                          for o, s in enumerate(streams)])
+    bank = c.bank.t.T.contiguous()
+
+    res["A_eager_ms"] = time_ms(a_steps(K.cascade_pad))
+    res["A_ms"] = graph_ms(a_steps(K.cascade_pad))
+    res["A_step_ms"] = [graph_ms(lambda o=o: K.cascade_pad(
+        streams[o - 1], head, lay.lens[o - 1], lay.lens[o], streams[o],
+        C.decimation_taps(o, in_scale))) for o in range(1, p.octaves)]
+    res["A_plain_ms"] = time_ms(a_plain)
+    res["A_library_ms"] = time_ms(a_library)
+    del conv_in
+    res["B_eager_ms"] = time_ms(lambda: K.octave_response(
+        x0, arena, lay, c.starts, c.bank, c.scales, out))
+    res["B_ms"] = graph_ms(lambda: K.octave_response(
+        x0, arena, lay, c.starts, c.bank, c.scales, out))
+    res["B_plain_ms"] = time_ms(lambda: K.octave_response_arena_plain(
+        x0, arena, lay, c.starts, c.bank, c.scales, ref))
+    res["B_gemm_only_ms"] = time_ms(lambda: torch.matmul(frames, bank))
+    del frames
     res["cqt_ms"] = time_ms(lambda: K.cqt_cuda(y, p, stream_dtype=sd))
     res["cqt_plain_ms"] = time_ms(lambda: C.cqt(y, p, stream_dtype=sd))
+    ba, bb = cqt_bounds(y, p, lay, sd, c.starts)
+    put_bound(res, "A", ba)
+    put_bound(res, "B", bb)
     log(f"[3 kernels] A (7 octave steps): max|d| {res['A']:.3g}, "
-        f"{res['A_ms']:.3f} ms vs plain {res['A_plain_ms']:.3f} ms")
-    log(f"[3 kernels] B (8 octaves): max|d| {res['B']:.3g}, "
-        f"{res['B_ms']:.3f} ms vs plain {res['B_plain_ms']:.3f} ms")
-    log(f"[3 kernels] whole CQT (bf16 streams): {res['cqt_ms']:.3f} ms vs "
-        f"plain {res['cqt_plain_ms']:.3f} ms")
+        f"{res['A_ms']:.4f} ms on the card (eager, with the host's wrapper "
+        f"calls, {res['A_eager_ms']:.4f}) vs plain {res['A_plain_ms']:.4f} ms, "
+        f"library conv1d x 7 {res['A_library_ms']:.4f} ms; {share(res, 'A')}"
+        "; per step card / bytes / FMA ms " + ", ".join(
+            f"{t:.4f} / {b:.4f} / {f:.4f}"
+            for t, (b, f) in zip(res["A_step_ms"], ba["steps"])))
+    log(f"[3 kernels] B (8 octaves, one launch): max|d| {res['B']:.3g}, "
+        f"{res['B_ms']:.4f} ms on the card (eager {res['B_eager_ms']:.4f}) "
+        f"vs plain {res['B_plain_ms']:.4f} ms, "
+        f"library none (GEMM only, cuBLAS f32: "
+        f"{res['B_gemm_only_ms']:.4f} ms); {share(res, 'B')}")
+    log(f"[3 kernels] whole CQT (bf16 streams): {res['cqt_ms']:.4f} ms vs "
+        f"plain {res['cqt_plain_ms']:.4f} ms")
     return res
 
 
@@ -221,11 +351,13 @@ def check_conv_kernel(device) -> dict:
     h = CS.to_channels_last(x, torch.bfloat16)
     res = {"C": 0.0}
     hk = hp = h
+    plain_inputs = []
     for i, (w, b) in enumerate(layers):
         got = CS.conv7_layer(hk, w, b)
         ref = CS.conv7_layer_plain(hk, w, b)
         res["C"] = max(res["C"], float((got.float() - ref.float())
                                        .abs().max()))
+        plain_inputs.append(hp)
         hk, hp = got, CS.conv7_layer_plain(hp, w, b)
     got, ref = hk.float(), hp.float()
     rel = float((got - ref).abs().max() / ref.abs().max())
@@ -241,11 +373,34 @@ def check_conv_kernel(device) -> dict:
                 z = fn(z, w, b)
         return go
 
-    res["C_ms"] = time_ms(stack(CS.conv7_layer))
+    # library yardstick of C: cuDNN's bf16 conv2d, channels-last, on each
+    # layer's circularly pre-padded input with the folded weights and
+    # bias; the leaky ReLU is not in it
+    lib = []
+    for hi, (w, b) in zip(plain_inputs, layers):
+        ci = w.shape[1]
+        xi = equivariant.circular_pad(hi[..., :ci].permute(0, 3, 1, 2), 3, 3)
+        lib.append((xi.contiguous(memory_format=torch.channels_last),
+                    w.contiguous(memory_format=torch.channels_last),
+                    b.to(torch.bfloat16)))
+
+    def c_library():
+        for xi, w, b in lib:
+            torch.nn.functional.conv2d(xi, w, b)
+
+    res["C_eager_ms"] = time_ms(stack(CS.conv7_layer))
+    res["C_ms"] = graph_ms(stack(CS.conv7_layer))
     res["C_plain_ms"] = time_ms(stack(CS.conv7_layer_plain))
+    res["C_library_ms"] = time_ms(c_library)
+    flops = sum(2 * B * H * T * 8 * w.shape[1] * 49 for w, _ in layers)
+    put_bound(res, "C", bound(len(layers) * 2 * B * H * T * 8 * 2, flops,
+                              BF16_FLOPS))
     log(f"[3 kernels] C (3-layer stack): max|d| per layer {res['C']:.3g}, "
         f"stack max rel {rel:.3g} mean rel {mean_rel:.3g}; "
-        f"{res['C_ms']:.3f} ms vs plain {res['C_plain_ms']:.3f} ms")
+        f"{res['C_ms']:.4f} ms on the card (eager {res['C_eager_ms']:.4f}) "
+        f"vs plain {res['C_plain_ms']:.4f} ms, "
+        f"library conv2d bf16 x 3 (no leaky ReLU) "
+        f"{res['C_library_ms']:.4f} ms; {share(res, 'C')}")
     return res
 
 
@@ -329,8 +484,7 @@ def serve(paths, device) -> dict:
     ref = plain.predict_files(paths, return_raw=True)
     torch.cuda.synchronize()
     wall_plain = time.perf_counter() - t0
-    if launches != {"cascade_pad": cfg.octaves - 1,
-                    "octave_response": cfg.octaves,
+    if launches != {"cascade_pad": cfg.octaves - 1, "octave_response": 1,
                     "conv7_layer": cfg.conv_layers}:
         raise AssertionError(f"serve did not run every kernel: {launches}")
     if len(preds) != len(paths):
@@ -418,7 +572,7 @@ def check_exact(name, got, ref) -> float:
 def check_window_copy(device) -> dict:
     """#5, six variants: 44.1 kHz 3 s B = 4 (the CPU test's geometry) and
     the serving geometry (22050 Hz, 120 s, B = 16); times at the latter."""
-    res = {"ms": 0.0, "plain_ms": 0.0, "rates": {}}
+    res = {"ms": 0.0, "plain_ms": 0.0, "rates": {}, "bound_ms": 0.0}
     for sr, clip, batch in ((44100, 3, 4), (SR, CLIP_SECONDS, BATCH)):
         n_fft, hop, L, tile_t, starts, length = probe_dma_rate.geometry(
             sr, clip, batch)
@@ -434,8 +588,12 @@ def check_window_copy(device) -> dict:
                 ms = time_ms(lambda: PC.window_copy(*args))
                 res["ms"] += ms
                 res["plain_ms"] += time_ms(lambda: PC.window_copy_plain(*args))
-                res["rates"][v] = PC.window_copy_bytes(
-                    v, len(starts), tile_t, win, batch) / (ms * 1e-3) / 1e9
+                nbytes = PC.window_copy_bytes(v, len(starts), tile_t, win,
+                                              batch)
+                res["rates"][v] = nbytes / (ms * 1e-3) / 1e9
+                # the windows the variant stages, and its output
+                res["bound_ms"] += bound(nbytes + len(starts) * 4)[
+                    "bound_ms"]
     log("[5 probes] #5 window_copy: 6 variants x 2 geometries exact; at "
         "serving geometry " + ", ".join(
             f"{v} {r:.0f} GB/s" for v, r in res["rates"].items()))
@@ -444,23 +602,32 @@ def check_window_copy(device) -> dict:
 
 def check_stages(y: torch.Tensor, p: C.CQTParams, device) -> dict:
     """#6 on all 8 octaves of the serving clips (int16 octave 0, bf16
-    streams from kernel A) and on a small 8 kHz geometry: load / realign
-    exact; gemm and full within kernel B's 1e-4 (the raw GEMM of the
-    int16 octave 0 within the int16 bar 1e-3: unnormalized PCM sums);
-    full equal to the production kernel B."""
-    res = {"err": 0.0, "ms": {}, "plain_ms": {}}
+    streams from kernel A's arena) and on a small 8 kHz geometry: load /
+    realign exact; gemm and full within kernel B's 1e-4 (the raw GEMM of
+    the int16 octave 0 within the int16 bar 1e-3: unnormalized PCM sums);
+    full equal to the production kernel B's rows of that octave."""
+    res = {"err": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": 0.0,
+           "ops_ms": 0.0}
     g = np.random.default_rng(4)
     small = torch.from_numpy(pcm16(g.uniform(-0.6, 0.6, (3, 16000))
                                    .astype(np.float32))).to(device)
     ps = C.CQTParams(sr=8000, hop=1600, bins_per_octave=12, octaves=3)
     for yy, pp in ((small, ps), (y, p)):
-        octs = [probe_cqt_kernel_stages.octave_inputs(pp, yy, o,
-                                                      torch.bfloat16)
-                for o in range(pp.octaves)]
-        for o, (buf, st, bank_t, sc) in enumerate(octs):
+        n_fft = C.kernel_bank(pp)["n_fft"]
+        B, L = yy.shape
+        lay = K.arena_layout(L, pp.octaves, n_fft)
+        c = K._constants(pp, 1 + L // pp.hop, 1 / 32768.0, str(device))
+        x0 = C.pad_stream(yy, n_fft // 2, lay.lengths[0])
+        arena = K.cascade_arena(x0, lay, n_fft // 2, 1 / 32768.0,
+                                torch.bfloat16)
+        prod = torch.empty(B, pp.n_bins, c.starts.shape[1], device=device)
+        K.octave_response(x0, arena, lay, c.starts, c.bank, c.scales, prod)
+        octs = [(buf, c.starts[o], c.bank, c.scales[o]) for o, buf in
+                enumerate(K.octave_streams(x0, arena, lay))]
+        for o, (buf, st, bank, sc) in enumerate(octs):
             for stage in K.STAGES:
-                got = K.octave_response_stage(buf, st, bank_t, sc, stage)
-                ref = K.octave_response_stage_plain(buf, st, bank_t, sc,
+                got = K.octave_response_stage(buf, st, bank, sc, stage)
+                ref = K.octave_response_stage_plain(buf, st, bank, sc,
                                                     stage)
                 name = f"stage {stage} octave {o} sr={pp.sr}"
                 if stage in ("load", "realign"):
@@ -469,9 +636,24 @@ def check_stages(y: torch.Tensor, p: C.CQTParams, device) -> dict:
                 tol = 1e-3 if (stage, o) == ("gemm", 0) else 1e-4
                 res["err"] = max(res["err"],
                                  check_close(name, got, ref, tol, tol))
-            prod = torch.empty_like(got)
-            K.octave_response(buf, st, bank_t, sc, prod, 0)
-            check_exact(f"stage full vs kernel B octave {o}", got, prod)
+            row0 = (pp.octaves - 1 - o) * pp.bins_per_octave
+            check_exact(f"stage full vs kernel B octave {o} sr={pp.sr}", got,
+                        prod[:, row0:row0 + pp.bins_per_octave].contiguous())
+    # bounds at the serving geometry: load / realign read bpo samples of
+    # each window and write them; gemm reads the covered window samples
+    # and the cos rows, computes bpo rows; full as kernel B on one octave
+    bpo, T = p.bins_per_octave, c.starts.shape[1]
+    for o, (buf, st, _, _) in enumerate(octs):
+        item = buf.element_size()
+        cover = window_cover(st.tolist(), n_fft) * B * item
+        out_b = B * bpo * T * 4
+        gemm = 2 * B * T * bpo * n_fft
+        for b in (bound(B * T * bpo * item + out_b),) * 2 + (
+                bound(cover + bpo * n_fft * 4 + out_b, gemm),
+                bound(cover + 2 * n_fft * 72 * 4 + out_b, 2 * gemm)):
+            res["bound_ms"] += b["bound_ms"]
+            res["ops_ms"] += b["bound_ms"] if b["bound_by"] == "operations" \
+                else 0.0
     for stage in K.STAGES:
         def run(fn, stage=stage):
             return lambda: [fn(*a, stage) for a in octs]
@@ -480,7 +662,8 @@ def check_stages(y: torch.Tensor, p: C.CQTParams, device) -> dict:
     log("[5 probes] #6 kernel B stages, 8 octaves at serving geometry: "
         + ", ".join(f"{s} {res['ms'][s]:.4f} ms (plain "
                     f"{res['plain_ms'][s]:.4f})" for s in K.STAGES)
-        + f"; max|d| gemm/full {res['err']:.3g}; full == kernel B")
+        + f"; max|d| gemm/full {res['err']:.3g}; full == kernel B; bound "
+        f"{res['bound_ms']:.4f} ms")
     return res
 
 
@@ -498,6 +681,7 @@ def check_transpose_pad(y: torch.Tensor) -> dict:
     if PC.transpose_pad_tm(y[:, :2000], 0, 512) is not None:
         raise AssertionError("transpose_pad_tm accepted a refused geometry")
     lfull = PC.transpose_pad_geometry(y, (y.shape[1] // 4410) * 4410, 512)
+    res.update(bound((y.shape[1] + lfull) * y.shape[0] * y.element_size()))
     res["ms"] = time_ms(lambda: PC.transpose_pad(y, 256, lfull))
     res["plain_ms"] = time_ms(lambda: PC.transpose_pad_plain(y, 256, lfull))
     log(f"[5 probes] #7 transpose_pad: int16 and f32 exact; serving int16 "
@@ -525,7 +709,8 @@ def check_launch_and_primitives(device) -> dict:
     res = {"launch_ms": time_ms(lambda: PC.launch_probe(x, 201)),
            "launch_plain_ms": time_ms(lambda: PC.launch_probe_plain(x, 201)),
            "graph_ms": time_ms(replay) / len(outs),
-           "prim_ms": 0.0, "prim_plain_ms": 0.0}
+           "launch_bound": bound(201 * 8 * 128 * 4),
+           "prim_ms": 0.0, "prim_plain_ms": 0.0, "prim_bound_ms": 0.0}
     del replay, outs
     for name in PC.PRIMITIVES:
         xi = PC.primitive_input(name).to(device)
@@ -533,6 +718,10 @@ def check_launch_and_primitives(device) -> dict:
                     PC.primitive_plain(name, xi))
         res["prim_ms"] += time_ms(lambda: PC.primitive(name, xi))
         res["prim_plain_ms"] += time_ms(lambda: PC.primitive_plain(name, xi))
+        shape, _, out_shape = PC.PRIMITIVES[name]
+        res["prim_bound_ms"] += bound(
+            xi.numel() * xi.element_size()
+            + int(np.prod(out_shape)) * 4)["bound_ms"]
     log(f"[5 probes] #8 launch_probe grid 201: {res['launch_ms']:.4f} ms vs "
         f"plain {res['launch_plain_ms']:.4f} ms; CUDA graph of "
         f"{probe_pallas_overhead.BURST} launches replayed exactly, "
@@ -625,52 +814,70 @@ def main() -> int:
     tpu = "audio_key_estimation_tpu/ops/"
     n = srv["launches"]
     st, sm = probe["stages"], probe["small"]
+
+    def row(name, source, replaces, launches, err, ms, plain_ms, b,
+            library_ms, **extra):
+        return {"name": name, "route": "cuda", "source": src + source,
+                "replaces": replaces, "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+                "library_ms": library_ms, **extra}
+
+    def res_bound(key):
+        return {"bound_ms": res[key + "_bound_ms"],
+                "bound_by": res[key + "_bound_by"]}
+
     kernels = [
-        {"name": "cqt_decimate (kernel A)", "route": "cuda",
-         "source": src + "cqt_decimate.cu",
-         "replaces": tpu + "cqt_pallas.py:472",
-         "launches": n["cascade_pad"], "max_abs_err": res["A"],
-         "ms": res["A_ms"], "plain_ms": res["A_plain_ms"]},
-        {"name": "cqt_response (kernel B)", "route": "cuda",
-         "source": src + "cqt_response.cu",
-         "replaces": tpu + "cqt_pallas.py:163, " + tpu + "cqt_pallas.py:316",
-         "launches": n["octave_response"], "max_abs_err": res["B"],
-         "ms": res["B_ms"], "plain_ms": res["B_plain_ms"]},
-        {"name": "conv7 (kernel C)", "route": "cuda",
-         "source": src + "conv7.cu",
-         "replaces": tpu + "convstack_pallas.py:91",
-         "launches": n["conv7_layer"], "max_abs_err": res["C"],
-         "ms": res["C_ms"], "plain_ms": res["C_plain_ms"]},
-        {"name": "window_copy (#5, six variants; ms summed)",
-         "route": "cuda", "source": src + "probe_window_copy.cu",
-         "replaces": "scripts/probe_dma_rate.py:57",
-         "launches": m["window_copy"], "max_abs_err": 0.0,
-         "ms": probe["window"]["ms"],
-         "plain_ms": probe["window"]["plain_ms"]},
-        {"name": "cqt_response stages (#6, load/realign/gemm/full, "
-         "8 octaves; ms summed)", "route": "cuda",
-         "source": src + "cqt_response.cu",
-         "replaces": "scripts/probe_cqt_kernel_stages.py:59",
-         "launches": m["octave_response_stage"], "max_abs_err": st["err"],
-         "ms": sum(st["ms"].values()),
-         "plain_ms": sum(st["plain_ms"].values())},
-        {"name": "transpose_pad (#7)", "route": "cuda",
-         "source": src + "transpose_pad.cu",
-         "replaces": "scripts/experiment_transpose_kernel.py:82",
-         "launches": m["transpose_pad"], "max_abs_err": 0.0,
-         "ms": probe["transpose"]["ms"],
-         "plain_ms": probe["transpose"]["plain_ms"]},
-        {"name": "launch_probe (#8, grid 201)", "route": "cuda",
-         "source": src + "probe_launch.cu",
-         "replaces": "scripts/probe_pallas_overhead.py:50",
-         "launches": m["launch_probe"], "max_abs_err": 0.0,
-         "ms": sm["launch_ms"], "plain_ms": sm["launch_plain_ms"]},
-        {"name": "primitives (#9, six probes; ms summed)", "route": "cuda",
-         "source": src + "probe_primitives.cu",
-         "replaces": "scripts/probe_pallas_primitives.py:42-151",
-         "launches": m["primitive"], "max_abs_err": 0.0,
-         "ms": sm["prim_ms"], "plain_ms": sm["prim_plain_ms"]},
+        row("cqt_decimate (kernel A, 7 octave steps)", "cqt_decimate.cu",
+            tpu + "cqt_pallas.py:472", n["cascade_pad"], res["A"],
+            res["A_ms"], res["A_plain_ms"], res_bound("A"),
+            res["A_library_ms"], eager_ms=res["A_eager_ms"],
+            library="F.conv1d stride 2 x 7, zero-padded interiors"),
+        row("cqt_response (kernel B, 8 octaves in one launch)",
+            "cqt_response.cu",
+            tpu + "cqt_pallas.py:163, " + tpu + "cqt_pallas.py:316",
+            n["octave_response"], res["B"], res["B_ms"], res["B_plain_ms"],
+            res_bound("B"), None, gemm_only_ms=res["B_gemm_only_ms"],
+            eager_ms=res["B_eager_ms"],
+            library="none (GEMM only: torch.matmul f32, TF32 off, "
+                    "pre-gathered frames)"),
+        row("conv7 (kernel C, 3 layers)", "conv7.cu",
+            tpu + "convstack_pallas.py:91", n["conv7_layer"], res["C"],
+            res["C_ms"], res["C_plain_ms"], res_bound("C"),
+            res["C_library_ms"], eager_ms=res["C_eager_ms"],
+            library="F.conv2d bf16 channels-last x 3, no leaky ReLU"),
+        row("window_copy (#5, six variants; ms summed)",
+            "probe_window_copy.cu", "scripts/probe_dma_rate.py:57",
+            m["window_copy"], 0.0, probe["window"]["ms"],
+            probe["window"]["plain_ms"],
+            {"bound_ms": probe["window"]["bound_ms"], "bound_by": "bytes"},
+            None),
+        row("cqt_response stages (#6, load/realign/gemm/full, 8 octaves; "
+            "ms summed)", "cqt_response.cu",
+            "scripts/probe_cqt_kernel_stages.py:59",
+            m["octave_response_stage"], st["err"], sum(st["ms"].values()),
+            sum(st["plain_ms"].values()),
+            {"bound_ms": st["bound_ms"],
+             "bound_by": "operations" if 2 * st["ops_ms"] > st["bound_ms"]
+             else "bytes"}, None),
+        row("transpose_pad (#7)", "transpose_pad.cu",
+            "scripts/experiment_transpose_kernel.py:82", m["transpose_pad"],
+            0.0, probe["transpose"]["ms"], probe["transpose"]["plain_ms"],
+            probe["transpose"], None),
+        row("launch_probe (#8, grid 201)", "probe_launch.cu",
+            "scripts/probe_pallas_overhead.py:50", m["launch_probe"], 0.0,
+            sm["launch_ms"], sm["launch_plain_ms"], sm["launch_bound"],
+            sm["launch_plain_ms"], library="torch.ones (the plain version)"),
+        row("primitives (#9, six probes; ms summed)", "probe_primitives.cu",
+            "scripts/probe_pallas_primitives.py:42-151", m["primitive"], 0.0,
+            sm["prim_ms"], sm["prim_plain_ms"],
+            {"bound_ms": sm["prim_bound_ms"], "bound_by": "bytes"}, None),
     ]
+    for k in kernels:
+        log(f"[6 result] {k['name']}: {k['ms']:.4f} ms, bound "
+            f"{k['bound_ms']:.4f} ms ({k['bound_by']}, "
+            f"{k['bound_ms'] / k['ms']:.1%}), plain {k['plain_ms']:.4f} ms, "
+            f"library {k['library_ms']}")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

@@ -203,9 +203,11 @@ def test_only_cuda_implementations():
     assert "#include <torch/extension.h>" not in text
 
 
-def test_in_place_outputs_are_marked():
-    """octave_response writes into rows of its caller's output."""
-    out = [a for a in defined_schemas()["octave_response"] if "out" in a]
+@pytest.mark.parametrize("name", ["cascade_pad", "octave_response"])
+def test_in_place_outputs_are_marked(name):
+    """Kernel A writes into its octave's slice of the stream arena, kernel
+    B into the rows of its caller's feature tensor."""
+    out = [a for a in defined_schemas()[name] if a.endswith(" out")]
     assert out == ["Tensor(a!) out"]
 
 
@@ -231,17 +233,22 @@ def _starts():
     return _meta(8, dtype=torch.int32)
 
 
+def _bank():
+    return K.Bank(_meta(72, 512), _meta(64, 32, 18), _meta(64, 32, 18))
+
+
 WRAPPERS = {   # wrapper, its plain version's name in its module, arguments
     "cascade_pad": (K, "cascade_pad", "cascade_pad_plain", lambda: (
-        _meta(2, 4096), 256, 3000, 1500, 2024, np.zeros(49, np.float32),
-        torch.float32)),
-    "octave_response": (K, "octave_response", "octave_response_plain",
-                        lambda: (_meta(2, 4096), _starts(), _meta(72, 512),
-                                 _meta(36), _meta(2, 288, 8), 0)),
+        _meta(2, 4096), 256, 3000, 1500, _meta(2, 2024),
+        np.zeros(49, np.float32))),
+    "octave_response": (
+        K, "octave_response", "octave_response_arena_plain", lambda: (
+            _stream16(), _meta(2, 6000), K.arena_layout(3000, 8, 512),
+            _meta(8, 8, dtype=torch.int32), _bank(), _meta(8, 36),
+            _meta(2, 288, 8))),
     "octave_response_stage": (
         K, "octave_response_stage", "octave_response_stage_plain",
-        lambda: (_stream16(), _starts(), _meta(72, 512), _meta(36),
-                 "gemm")),
+        lambda: (_stream16(), _starts(), _bank(), _meta(36), "gemm")),
     "conv7": (CS, "conv7_layer", "conv7_layer_plain", lambda: (
         _meta(1, 8, 8, 8, dtype=torch.bfloat16),
         _meta(8, 8, 7, 7, dtype=torch.bfloat16), _meta(8))),

@@ -86,9 +86,10 @@ def test_cascade_pad_matches_jax_padded_stream(rng, n_fft, L):
     buf = cqt.pad_stream(torch.from_numpy(y), head,
                          cqt_cuda.padded_length(L, n_fft))
     length = cqt_cuda.padded_length(L_out, n_fft)
-    out = cqt_cuda.cascade_pad(buf, head, L, L_out, length,
-                               cqt.decimation_taps(1, 1 / 32768.0),
-                               torch.float32).numpy()
+    out = torch.full((2, length), float("nan"))
+    cqt_cuda.cascade_pad(buf, head, L, L_out, out,
+                         cqt.decimation_taps(1, 1 / 32768.0))
+    out = out.numpy()
     assert out.shape == (2, length)
     n = L_out + 2 * head + 1
     np.testing.assert_allclose(out[:, :n], ref_pad[:, :n], rtol=1e-5,

@@ -1,11 +1,15 @@
 """PyTorch port: import hygiene, device handling, and the copied constants.
 
-The port (audio_key_estimation_torch) must import no JAX, take only the
-JAX-free modules of the reference package, refuse a CUDA device it cannot
-have, and carry bit-exact copies of the host constants it could not
-import (the modules holding them import JAX).
+The port (audio_key_estimation_torch) must import no JAX and nothing of
+the reference package, refuse a CUDA device it cannot have, and carry
+bit-exact copies of what it takes from the reference package: the
+`Config` and its helpers, the key-signature map and the host constants.
 """
 
+import argparse
+import ast
+import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -16,36 +20,35 @@ import numpy as np
 import pytest
 import torch
 
+from audio_key_estimation_tpu import config as jax_config
 from audio_key_estimation_tpu.config import Config
 from audio_key_estimation_tpu.data import audio_io as jax_audio_io
 from audio_key_estimation_tpu.data.loaders import A_GENRES
 from audio_key_estimation_tpu.models import schedule as jax_schedule
 from audio_key_estimation_tpu.ops import cqt as jax_cqt
 from audio_key_estimation_tpu.ops import cqt_pallas as jax_cqt_pallas
+from audio_key_estimation_tpu.utils import key_signatures as jax_keysig
 
+from audio_key_estimation_torch import config as port_config
 from audio_key_estimation_torch.data import audio_io
 from audio_key_estimation_torch.data.loaders import A_GENRES as PORT_GENRES
 from audio_key_estimation_torch.models import schedule
 from audio_key_estimation_torch.ops import convstack_cuda, cqt, cqt_cuda
 from audio_key_estimation_torch.ops.frontend import use_cuda_kernels
 from audio_key_estimation_torch.predict import KeyEstimator
+from audio_key_estimation_torch.utils import key_signatures
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-ALLOWED_TPU_MODULES = {
-    "audio_key_estimation_tpu", "audio_key_estimation_tpu.config",
-    "audio_key_estimation_tpu.utils", "audio_key_estimation_tpu.utils.labels",
-    "audio_key_estimation_tpu.utils.key_signatures",
-    "audio_key_estimation_tpu.native", "audio_key_estimation_tpu.native.binding",
-}
+ALLOWED_TPU_MODULES = set()   # the port imports nothing of the JAX package
 
 TINY = dict(octaves=3, num_layers=2, conv_layers=1, n_filters=2,
             kernel_size=3, head_layers=1)
 
 
 def test_port_serves_without_jax(tmp_path):
-    """Import the port (its probe entry points included) and serve one
-    tiny WAV on the CPU in a fresh interpreter: no jax/flax module may
-    load, and only the JAX-free reference modules."""
+    """Import the port (its CLI and probe entry points included) and
+    serve one tiny WAV on the CPU in a fresh interpreter: no jax/flax
+    module and no module of the JAX package may load."""
     code = textwrap.dedent(f"""
         import json, sys
         import numpy as np
@@ -82,13 +85,103 @@ def test_port_serves_without_jax(tmp_path):
     assert tpu <= ALLOWED_TPU_MODULES, tpu - ALLOWED_TPU_MODULES
 
 
-def test_cuda_device_refused_without_cuda():
+def _imported_modules(path: str) -> set:
+    """Every module an import statement of the file names."""
+    mods = set()
+    for node in ast.walk(ast.parse(open(path).read())):
+        if isinstance(node, ast.Import):
+            mods.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module:
+            mods.add(node.module)
+    return mods
+
+
+def _port_sources() -> list:
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, dirs, names in os.walk(os.path.join(
+            REPO, "audio_key_estimation_torch")):
+        dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    return sorted(files)
+
+
+@pytest.mark.parametrize("path", _port_sources(),
+                         ids=lambda p: os.path.relpath(p, REPO))
+def test_port_sources_import_no_jax_package(path):
+    """No import statement of the port or of chip_smoke.py names the JAX
+    package, jax or flax (comments and strings may name a counterpart)."""
+    bad = {m for m in _imported_modules(path)
+           if m.split(".")[0] in ("audio_key_estimation_tpu", "jax", "flax")}
+    assert not bad, bad
+
+
+def test_config_fields_and_defaults_equal():
+    ours = [(f.name, f.type, f.default) for f in
+            dataclasses.fields(port_config.Config)]
+    ref = [(f.name, f.type, f.default) for f in dataclasses.fields(Config)]
+    assert ours == ref
+    assert port_config.RUNTIME_FIELDS == jax_config.RUNTIME_FIELDS
+    cfg = port_config.Config(only_semitones=True, octaves=6)
+    assert (cfg.bins_per_octave, cfg.pitches, cfg.pitch_classes) == (12, 72,
+                                                                     12)
+    assert not hasattr(port_config.Config, "pallas_cqt_enabled")
+
+
+@pytest.mark.parametrize("direction", ["jax_to_port", "port_to_jax"])
+def test_config_json_round_trip(direction):
+    """A config.json written by either package loads in the other."""
+    kw = dict(octaves=6, mesh_shape=(4,), bucket_sizes=(64, 128),
+              use_pallas_cqt="off", fused_convstack=True, lr=1e-3)
+    src, dst = ((Config, port_config.Config) if direction == "jax_to_port"
+                else (port_config.Config, Config))
+    text = src(**kw).to_json()
+    got = dst.from_json(text)
+    assert isinstance(got, dst) and got.to_json() == text
+    assert dataclasses.asdict(got) == dataclasses.asdict(src(**kw))
+    assert dst.from_json(json.dumps({**json.loads(text), "gone": 1})) == got
+
+
+def test_config_helpers_equal():
+    """add_config_args: the same flags with the same defaults; parsing
+    the same command line gives equal configs; merge_eval_config agrees."""
+    def parser_of(mod):
+        p = argparse.ArgumentParser()
+        mod.add_config_args(p)
+        return p
+    ours, ref = parser_of(port_config), parser_of(jax_config)
+    flags = lambda p: [(a.option_strings, a.default, a.const, a.choices,
+                        a.nargs) for a in p._actions]
+    assert flags(ours) == flags(ref)
+    argv = ["--octaves", "5", "--mesh_shape", "2,2", "--use_pallas_cqt",
+            "--genre", "--lr", "0.01"]
+    a = port_config.config_from_args(ours.parse_args(argv))
+    b = jax_config.config_from_args(ref.parse_args(argv))
+    assert a.to_json() == b.to_json()
+    cli, saved = Config(data_root="x", octaves=3), Config(octaves=7,
+                                                          data_root="y")
+    pc, ps = (port_config.Config.from_json(c.to_json()) for c in (cli, saved))
+    assert (port_config.merge_eval_config(pc, ps).to_json()
+            == jax_config.merge_eval_config(cli, saved).to_json())
+
+
+def test_key_signature_map_equal():
+    np.testing.assert_array_equal(key_signatures.KEY_SIGNATURE_MAP,
+                                  jax_keysig.KEY_SIGNATURE_MAP)
+    assert key_signatures.KEY_SIGNATURE_MAP.dtype == np.float32
+    assert key_signatures.NUM_SIGNATURE_ROWS == jax_keysig.NUM_SIGNATURE_ROWS
+
+
+@pytest.mark.parametrize("device", [{"device": "cuda"}, {}],
+                         ids=["cuda", "default"])
+def test_cuda_device_refused_without_cuda(device):
+    """KeyEstimator serves on the card by default; without CUDA it raises
+    unless the CPU was asked for."""
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")
     from audio_key_estimation_torch.models import PitchClassNet
     cfg = Config(**TINY)
     with pytest.raises(RuntimeError, match="CUDA"):
-        KeyEstimator(cfg, PitchClassNet(cfg).state_dict(), device="cuda")
+        KeyEstimator(cfg, PitchClassNet(cfg).state_dict(), **device)
 
 
 def test_kernel_wrappers_never_fall_back_off_cpu():
@@ -96,13 +189,16 @@ def test_kernel_wrappers_never_fall_back_off_cpu():
     reach a plain version: each wrapper raises."""
     m = torch.empty(2, 4096, dtype=torch.float32, device="meta")
     with pytest.raises(ValueError):
-        cqt_cuda.cascade_pad(m, 256, 3000, 1500, 2024,
-                             cqt.halfband_taps(), torch.float32)
-    bank = torch.empty(72, 512, device="meta")
+        cqt_cuda.cascade_pad(m, 256, 3000, 1500,
+                             torch.empty(2, 2024, device="meta"),
+                             cqt.halfband_taps())
+    bank = cqt_cuda.Bank(*(torch.empty(72, 512, device="meta"),) * 3)
     with pytest.raises(ValueError):
-        cqt_cuda.octave_response(m, torch.zeros(5, dtype=torch.int32),
-                                 bank, torch.empty(36, device="meta"),
-                                 torch.empty(2, 288, 5, device="meta"), 0)
+        cqt_cuda.octave_response(m, torch.empty(2, 6000, device="meta"),
+                                 cqt_cuda.arena_layout(3000, 8, 512),
+                                 torch.zeros(8, 5, dtype=torch.int32),
+                                 bank, torch.empty(8, 36, device="meta"),
+                                 torch.empty(2, 288, 5, device="meta"))
     x = torch.empty(1, 8, 8, 8, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
         convstack_cuda.conv7_layer(

@@ -80,6 +80,21 @@ def test_cli_runs(tmp_path, capsys):
     assert all(p in printed for p in paths) and "conf" in printed
 
 
+def test_cli_defaults_to_cuda(tmp_path):
+    """Without --device the CLI serves on the card: on a machine without
+    CUDA it raises instead of falling back to the CPU."""
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    cfg = CFG.replace(genre=False)
+    from audio_key_estimation_torch.models import PitchClassNet
+    ckpt = str(tmp_path / "best_model.pt")
+    torch.save(PitchClassNet(cfg).state_dict(), ckpt)
+    flags = ["--octaves", "4", "--num_layers", "2", "--conv_layers", "1",
+             "--n_filters", "2", "--kernel_size", "3", "--head_layers", "1"]
+    with pytest.raises(RuntimeError, match="CUDA"):
+        cli.main(_wavs(tmp_path) + flags + ["--torch_ckpt", ckpt])
+
+
 def test_unported_entry_points_raise(tmp_path):
     from audio_key_estimation_torch.models import PitchClassNet
     est = KeyEstimator(CFG, PitchClassNet(CFG).state_dict(), device="cpu")

@@ -228,8 +228,8 @@ def test_stage_matches_tpu_variant(stage_inputs, stream, stage, tpu_variant):
     x = x.to(torch.int16) if stream.startswith("int16") else x.bfloat16()
     got = cqt_cuda.octave_response_stage(
         x, torch.tensor(g["starts"][:n], dtype=torch.int32),
-        torch.from_numpy(g["kmat_t"]), torch.from_numpy(g["scales"]),
-        stage).numpy()
+        cqt_cuda.make_bank(g["kmat_t"], "cpu"),
+        torch.from_numpy(g["scales"]), stage).numpy()
     assert got.shape == ref.shape == (4, 36, n)
     if stage in ("load", "realign"):
         np.testing.assert_array_equal(got, ref)
@@ -240,16 +240,19 @@ def test_stage_matches_tpu_variant(stage_inputs, stream, stage, tpu_variant):
 
 
 def test_full_stage_is_kernel_b(stage_inputs):
-    """The full stage's plain version is kernel B's (same geometry)."""
+    """The full stage's plain version is kernel B's (same geometry): the
+    stream as a one-octave layout of kernel B."""
     g = stage_inputs["int16 octave 0"]
     n = g["n_frames"]
     x = torch.from_numpy(np.asarray(g["ypadT"]).T.copy())
     starts = torch.tensor(g["starts"][:n], dtype=torch.int32)
-    bank_t = torch.from_numpy(g["kmat_t"])
+    bank = cqt_cuda.make_bank(g["kmat_t"], "cpu")
     scales = torch.from_numpy(g["scales"])
+    layout = cqt_cuda.ArenaLayout((0,), (x.shape[1],), (0,), 0)
     out = torch.zeros(4, 36, n)
-    cqt_cuda.octave_response(x, starts, bank_t, scales, out, 0)
-    got = cqt_cuda.octave_response_stage(x, starts, bank_t, scales, "full")
+    cqt_cuda.octave_response(x, torch.empty(4, 0), layout, starts[None],
+                             bank, scales[None], out)
+    got = cqt_cuda.octave_response_stage(x, starts, bank, scales, "full")
     assert torch.equal(got, out)
 
 
@@ -309,7 +312,8 @@ def test_probe_wrappers_never_fall_back_off_cpu():
                                              device="meta"))
     with pytest.raises(ValueError):
         cqt_cuda.octave_response_stage(
-            m16, st, torch.empty(72, 512, device="meta"),
+            m16, st, cqt_cuda.Bank(*(torch.empty(72, 512, device="meta"),)
+                                   * 3),
             torch.empty(36, device="meta"), "gemm")
     assert (PC.window_copy.launches, PC.transpose_pad.launches,
             PC.launch_probe.launches, PC.primitive.launches,
