@@ -118,7 +118,7 @@ def check_close(name, got, ref, rtol, atol) -> float:
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
-# NVIDIA H100 SXM published peaks (the on-chip-measurement guide's table)
+# NVIDIA H100 SXM published peaks
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12          # float32 outside the tensor cores
 BF16_FLOPS = 989e12        # bf16 tensor cores, dense
