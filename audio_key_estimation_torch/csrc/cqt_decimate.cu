@@ -130,30 +130,22 @@ __global__ void __launch_bounds__(kThreads) cascade_pad_kernel(
   const int r0 = blockIdx.x * kTile;
   // staged sample i is x[s0 + i]; output row r0 + m reads x[s0 + 2m + j]
   const int s0 = 2 * (r0 - head_out) - kHalf;
-  if ((head_in + s0) % V == 0) {
-    // the window starts on a vector boundary (head_in and head_out are
-    // multiples of 8 at every n_fft the front-end uses): 16-byte loads,
-    // 16-byte shared stores
-    for (int q = threadIdx.x; q < kWin / V; q += kThreads) {
-      const int s = s0 + q * V;
-      float v[V];
-      if (s >= 0 && s + V <= L_in) {
-        load_vec<Tin>(x + s, v);
-      } else {
+  // head_in and head_out are multiples of 8 (the launcher refuses others),
+  // so x + s0 starts on a 16-byte boundary: 16-byte loads and stores
+  for (int q = threadIdx.x; q < kWin / V; q += kThreads) {
+    const int s = s0 + q * V;
+    float v[V];
+    if (s >= 0 && s + V <= L_in) {
+      load_vec<Tin>(x + s, v);
+    } else {
 #pragma unroll
-        for (int e = 0; e < V; ++e)
-          v[e] = (s + e >= 0 && s + e < L_in) ? akt_to_float(x[s + e]) : 0.f;
-      }
+      for (int e = 0; e < V; ++e)
+        v[e] = (s + e >= 0 && s + e < L_in) ? akt_to_float(x[s + e]) : 0.f;
+    }
 #pragma unroll
-      for (int e = 0; e < V; e += 4)
-        *reinterpret_cast<float4*>(&win[skew(q * V + e)]) =
-            make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
-    }
-  } else {
-    for (int i = threadIdx.x; i < kWin; i += kThreads) {
-      const int s = s0 + i;
-      win[skew(i)] = (s >= 0 && s < L_in) ? akt_to_float(x[s]) : 0.f;
-    }
+    for (int e = 0; e < V; e += 4)
+      *reinterpret_cast<float4*>(&win[skew(q * V + e)]) =
+          make_float4(v[e], v[e + 1], v[e + 2], v[e + 3]);
   }
   __syncthreads();
 
@@ -233,9 +225,10 @@ bool aligned16(const void* p) {
 
 }  // namespace
 
-// in / out rows start 16-byte aligned and their strides keep them so
-// (the 16-byte loads and stores above); n_out is a multiple of 8 (a row
-// of kPer outputs ends inside it when it starts inside the interior).
+// in / out rows start 16-byte aligned and their strides keep them so, and
+// head_in / head_out are multiples of 8 (the 16-byte loads and stores
+// above); n_out is a multiple of 8 (a row of kPer outputs ends inside it
+// when it starts inside the interior).
 extern "C" int akt_cascade_pad(const void* in, int in_dtype,
                                long long in_stride, int head_in, int L_in,
                                void* out, int out_dtype, long long out_stride,
@@ -243,7 +236,8 @@ extern "C" int akt_cascade_pad(const void* in, int in_dtype,
                                const float* taps_host, void* stream) {
   if (n_out < L_out + 2 * head_out + 1 || n_out % 8 != 0 || batch < 1 ||
       batch > 65535 || !aligned16(in) || !aligned16(out) ||
-      in_stride % 8 != 0 || out_stride % 8 != 0)
+      in_stride % 8 != 0 || out_stride % 8 != 0 || head_in % 8 != 0 ||
+      head_out % 8 != 0 || head_in < 0 || head_out < 0)
     return AKT_BAD_ARGS;
   Taps taps;
   for (int j = 0; j < kTaps; ++j) taps.v[j] = taps_host[j];

@@ -15,8 +15,10 @@
 // offsets. scales hold sqrt(kernel length) * 2^(o/2) (and 1/32768 for
 // int16 input).
 //
-// What bounds it on the H100: the FLOPs of a float32-accurate GEMM (73.7
-// kFLOP per frame, 5.67 GFLOP at the serving geometry; PERF.md). Design:
+// What bounds it on the H100: the TF32 products of its float32-accurate
+// GEMM (73.7 kFLOP per frame and product; 2 products on bf16 streams, 3
+// on int16 or float32: 12.05 GFLOP at the serving geometry; PERF.md).
+// Design:
 //  * one launch, grid (frame tiles, clips, octaves): 640 blocks of 128
 //    frames at 16 clips x 601 frames x 8 octaves, instead of eight
 //    launches of one partial wave each;

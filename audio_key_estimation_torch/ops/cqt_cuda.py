@@ -114,7 +114,8 @@ def cascade_pad(buf: torch.Tensor, head: int, L_in: int, L_out: int,
                 out: torch.Tensor, taps: np.ndarray) -> None:
     """(B, Lpad_in) padded stream of octave o-1 -> out, (B, length) padded
     stream of octave o at out's dtype, written in place (out may be a
-    slice of the arena). Kernel A on CUDA, its plain version on CPU."""
+    slice of the arena). Kernel A on CUDA (head a multiple of 8, as
+    n_fft / 2 is), its plain version on CPU."""
     if buf.is_cpu:
         out.copy_(cascade_pad_plain(buf, head, L_in, L_out, out.shape[1],
                                     taps, out.dtype))
@@ -129,7 +130,8 @@ def cascade_pad(buf: torch.Tensor, head: int, L_in: int, L_out: int,
              "cascade_pad: input and output rows must be contiguous and "
              "16-byte aligned, on the device")
     length = out.shape[1]
-    if not (head + L_in <= buf.shape[1] and L_out == (L_in - 1) // 2 + 1
+    if not (head >= 0 and head % 8 == 0 and head + L_in <= buf.shape[1]
+            and L_out == (L_in - 1) // 2 + 1
             and length >= L_out + 2 * head + 1 and length % 8 == 0
             and out.shape[0] == buf.shape[0]):
         raise ValueError(f"cascade_pad: geometry head={head} L_in={L_in} "

@@ -1,5 +1,6 @@
-"""What every entry point on the card shares: CUDA-event timing, the card
-line, and the refusal to run without a card."""
+"""What every entry point on the card shares: CUDA-event timing (one
+eager call, or replays of a CUDA graph), the card line, and the refusal
+to run without a card."""
 
 from __future__ import annotations
 
@@ -46,3 +47,19 @@ def time_ms(fn, reps: int = 20, warmup: int = 3) -> float:
         e.synchronize()
         times.append(s.elapsed_time(e))
     return float(np.median(times))
+
+
+def graph_ms(fn, reps: int = 20, repeat: int = 5) -> float:
+    """The card's time of one call of fn: fn captured `repeat` times into
+    one CUDA graph, the replay timed (time_ms) and divided by `repeat`.
+    The host's time between launches is not counted, and the graph's own
+    launch (a few µs before the card sees the first kernel) is spread
+    over `repeat` calls; each launch inside the graph still costs its
+    own ~1 µs. fn must give the same result when run again."""
+    fn()                                  # outside the capture: warm-up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(repeat):
+            fn()
+    return time_ms(graph.replay, reps) / repeat

@@ -65,7 +65,8 @@ from audio_key_estimation_torch.scripts import (experiment_transpose_kernel,
                                                 probe_dma_rate,
                                                 probe_pallas_overhead,
                                                 probe_pallas_primitives)
-from audio_key_estimation_torch.scripts.harness import card_line, time_ms
+from audio_key_estimation_torch.scripts.harness import (card_line,
+                                                        graph_ms, time_ms)
 
 SR = 22050
 CLIP_SECONDS = 120
@@ -121,7 +122,16 @@ def check_close(name, got, ref, rtol, atol) -> float:
 # NVIDIA H100 SXM published peaks
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS = 67e12          # float32 outside the tensor cores
+TF32_FLOPS = 495e12        # TF32 tensor cores, dense
 BF16_FLOPS = 989e12        # bf16 tensor cores, dense
+
+
+def tf32_products(dtype: torch.dtype) -> int:
+    """TF32 products kernel B issues per multiply-add of a stream of this
+    dtype to keep float32 accuracy (3xTF32): a bf16 sample is exact in
+    TF32, so x * b_hi + x * b_lo; an int16 or float32 sample is split too,
+    adding x_lo * b_hi."""
+    return 2 if dtype == torch.bfloat16 else 3
 
 
 def bound(nbytes: float, flops: float = 0.0,
@@ -134,27 +144,15 @@ def bound(nbytes: float, flops: float = 0.0,
 
 
 def share(r: dict, key: str) -> str:
-    return (f"bound {r[key + '_bound_ms']:.4f} ms ({r[key + '_bound_by']}), "
-            f"{r[key + '_bound_ms'] / r[key + '_ms']:.0%} of it")
+    b = r[key + "_bound_ms"]
+    return (f"bound {b:.4f} ms ({r[key + '_bound_by']}), "
+            f"{b / r[key + '_card_ms']:.1%} of it on the card, "
+            f"{b / r[key + '_ms']:.1%} eager")
 
 
 def put_bound(res: dict, key: str, b: dict) -> None:
     res[key + "_bound_ms"], res[key + "_bound_by"] = b["bound_ms"], \
         b["bound_by"]
-
-
-def graph_ms(fn, reps: int = 20) -> float:
-    """The card's time for fn's launches: fn captured once into a CUDA
-    graph and the replay timed (CUDA events, median of reps), so no host
-    time between launches is counted. One eager call (time_ms) also
-    counts the host's time in the wrappers, which at these sizes can
-    exceed the kernels' own."""
-    fn()                                  # outside the capture: warm-up
-    torch.cuda.synchronize()
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        fn()
-    return time_ms(graph.replay, reps)
 
 
 def window_cover(starts, n_fft: int) -> int:
@@ -166,9 +164,11 @@ def window_cover(starts, n_fft: int) -> int:
 def cqt_bounds(y, p, lay, stream_dtype, starts) -> tuple[dict, dict]:
     """Bounds of kernel A's 7 steps and of kernel B's launch at this
     geometry: A reads each interior once and writes each padded stream
-    (49 multiply-adds per computed row, f32); B reads the samples the
-    windows cover, the bank's two parts and the tables, writes the
-    features, and does the float32 GEMM (2 * 2bpo * n_fft per frame)."""
+    (49 float32 multiply-adds per computed row, outside the tensor
+    cores); B reads the samples the windows cover, the bank's two parts
+    and the tables, writes the features, and does the GEMM (2bpo * n_fft
+    multiply-adds per frame) as the TF32 products it must issue for
+    float32 accuracy (tf32_products), at the TF32 peak."""
     n_fft = C.kernel_bank(p)["n_fft"]
     head = n_fft // 2
     B = y.shape[0]
@@ -185,12 +185,13 @@ def cqt_bounds(y, p, lay, stream_dtype, starts) -> tuple[dict, dict]:
     for o in range(p.octaves):
         b_bytes += B * window_cover(starts[o].tolist(), n_fft) * (
             y.element_size() if o == 0 else item)
-    b_flops = p.octaves * 2 * B * T * 2 * p.bins_per_octave * n_fft
+    b_flops = 2 * B * T * 2 * p.bins_per_octave * n_fft * (
+        tf32_products(y.dtype) + (p.octaves - 1) * tf32_products(stream_dtype))
     a = bound(a_bytes, a_flops)
     # each step's bytes and FMA times (ms), what its card time is set against
     a["steps"] = [(nb / HBM_BYTES_PER_S * 1e3, nf / F32_FLOPS * 1e3)
                   for nb, nf in steps]
-    return a, bound(b_bytes, b_flops)
+    return a, bound(b_bytes, b_flops, TF32_FLOPS)
 
 
 def check_cqt_kernels(y: torch.Tensor, p: C.CQTParams) -> dict:
@@ -292,17 +293,19 @@ def check_cqt_kernels(y: torch.Tensor, p: C.CQTParams) -> dict:
                           for o, s in enumerate(streams)])
     bank = c.bank.t.T.contiguous()
 
-    res["A_eager_ms"] = time_ms(a_steps(K.cascade_pad))
-    res["A_ms"] = graph_ms(a_steps(K.cascade_pad))
+    # ms: one eager call, CUDA events (as plain_ms and library_ms);
+    # card_ms: the same launches replayed from a CUDA graph
+    res["A_ms"] = time_ms(a_steps(K.cascade_pad))
+    res["A_card_ms"] = graph_ms(a_steps(K.cascade_pad))
     res["A_step_ms"] = [graph_ms(lambda o=o: K.cascade_pad(
         streams[o - 1], head, lay.lens[o - 1], lay.lens[o], streams[o],
         C.decimation_taps(o, in_scale))) for o in range(1, p.octaves)]
     res["A_plain_ms"] = time_ms(a_plain)
     res["A_library_ms"] = time_ms(a_library)
     del conv_in
-    res["B_eager_ms"] = time_ms(lambda: K.octave_response(
+    res["B_ms"] = time_ms(lambda: K.octave_response(
         x0, arena, lay, c.starts, c.bank, c.scales, out))
-    res["B_ms"] = graph_ms(lambda: K.octave_response(
+    res["B_card_ms"] = graph_ms(lambda: K.octave_response(
         x0, arena, lay, c.starts, c.bank, c.scales, out))
     res["B_plain_ms"] = time_ms(lambda: K.octave_response_arena_plain(
         x0, arena, lay, c.starts, c.bank, c.scales, ref))
@@ -314,14 +317,15 @@ def check_cqt_kernels(y: torch.Tensor, p: C.CQTParams) -> dict:
     put_bound(res, "A", ba)
     put_bound(res, "B", bb)
     log(f"[3 kernels] A (7 octave steps): max|d| {res['A']:.3g}, "
-        f"{res['A_ms']:.4f} ms on the card (eager, with the host's wrapper "
-        f"calls, {res['A_eager_ms']:.4f}) vs plain {res['A_plain_ms']:.4f} ms, "
-        f"library conv1d x 7 {res['A_library_ms']:.4f} ms; {share(res, 'A')}"
+        f"{res['A_ms']:.4f} ms eager (with the host's wrapper calls), "
+        f"{res['A_card_ms']:.4f} on the card vs plain "
+        f"{res['A_plain_ms']:.4f} ms, library conv1d x 7 "
+        f"{res['A_library_ms']:.4f} ms; {share(res, 'A')}"
         "; per step card / bytes / FMA ms " + ", ".join(
             f"{t:.4f} / {b:.4f} / {f:.4f}"
             for t, (b, f) in zip(res["A_step_ms"], ba["steps"])))
     log(f"[3 kernels] B (8 octaves, one launch): max|d| {res['B']:.3g}, "
-        f"{res['B_ms']:.4f} ms on the card (eager {res['B_eager_ms']:.4f}) "
+        f"{res['B_ms']:.4f} ms eager, {res['B_card_ms']:.4f} on the card "
         f"vs plain {res['B_plain_ms']:.4f} ms, "
         f"library none (GEMM only, cuBLAS f32: "
         f"{res['B_gemm_only_ms']:.4f} ms); {share(res, 'B')}")
@@ -388,8 +392,8 @@ def check_conv_kernel(device) -> dict:
         for xi, w, b in lib:
             torch.nn.functional.conv2d(xi, w, b)
 
-    res["C_eager_ms"] = time_ms(stack(CS.conv7_layer))
-    res["C_ms"] = graph_ms(stack(CS.conv7_layer))
+    res["C_ms"] = time_ms(stack(CS.conv7_layer))
+    res["C_card_ms"] = graph_ms(stack(CS.conv7_layer))
     res["C_plain_ms"] = time_ms(stack(CS.conv7_layer_plain))
     res["C_library_ms"] = time_ms(c_library)
     flops = sum(2 * B * H * T * 8 * w.shape[1] * 49 for w, _ in layers)
@@ -397,7 +401,7 @@ def check_conv_kernel(device) -> dict:
                               BF16_FLOPS))
     log(f"[3 kernels] C (3-layer stack): max|d| per layer {res['C']:.3g}, "
         f"stack max rel {rel:.3g} mean rel {mean_rel:.3g}; "
-        f"{res['C_ms']:.4f} ms on the card (eager {res['C_eager_ms']:.4f}) "
+        f"{res['C_ms']:.4f} ms eager, {res['C_card_ms']:.4f} on the card "
         f"vs plain {res['C_plain_ms']:.4f} ms, "
         f"library conv2d bf16 x 3 (no leaky ReLU) "
         f"{res['C_library_ms']:.4f} ms; {share(res, 'C')}")
@@ -641,16 +645,18 @@ def check_stages(y: torch.Tensor, p: C.CQTParams, device) -> dict:
                         prod[:, row0:row0 + pp.bins_per_octave].contiguous())
     # bounds at the serving geometry: load / realign read bpo samples of
     # each window and write them; gemm reads the covered window samples
-    # and the cos rows, computes bpo rows; full as kernel B on one octave
+    # and the cos rows, computes bpo rows; full as kernel B on one octave;
+    # the GEMMs as the TF32 products kernel B issues (tf32_products)
     bpo, T = p.bins_per_octave, c.starts.shape[1]
     for o, (buf, st, _, _) in enumerate(octs):
         item = buf.element_size()
         cover = window_cover(st.tolist(), n_fft) * B * item
         out_b = B * bpo * T * 4
-        gemm = 2 * B * T * bpo * n_fft
+        gemm = 2 * B * T * bpo * n_fft * tf32_products(buf.dtype)
         for b in (bound(B * T * bpo * item + out_b),) * 2 + (
-                bound(cover + bpo * n_fft * 4 + out_b, gemm),
-                bound(cover + 2 * n_fft * 72 * 4 + out_b, 2 * gemm)):
+                bound(cover + bpo * n_fft * 4 + out_b, gemm, TF32_FLOPS),
+                bound(cover + 2 * n_fft * 72 * 4 + out_b, 2 * gemm,
+                      TF32_FLOPS)):
             res["bound_ms"] += b["bound_ms"]
             res["ops_ms"] += b["bound_ms"] if b["bound_by"] == "operations" \
                 else 0.0
@@ -827,24 +833,26 @@ def main() -> int:
         return {"bound_ms": res[key + "_bound_ms"],
                 "bound_by": res[key + "_bound_by"]}
 
+    # ms, plain_ms and library_ms: one eager call each (CUDA events);
+    # card_ms: the kernel's launches replayed from a CUDA graph
     kernels = [
         row("cqt_decimate (kernel A, 7 octave steps)", "cqt_decimate.cu",
             tpu + "cqt_pallas.py:472", n["cascade_pad"], res["A"],
             res["A_ms"], res["A_plain_ms"], res_bound("A"),
-            res["A_library_ms"], eager_ms=res["A_eager_ms"],
+            res["A_library_ms"], card_ms=res["A_card_ms"],
             library="F.conv1d stride 2 x 7, zero-padded interiors"),
         row("cqt_response (kernel B, 8 octaves in one launch)",
             "cqt_response.cu",
             tpu + "cqt_pallas.py:163, " + tpu + "cqt_pallas.py:316",
             n["octave_response"], res["B"], res["B_ms"], res["B_plain_ms"],
             res_bound("B"), None, gemm_only_ms=res["B_gemm_only_ms"],
-            eager_ms=res["B_eager_ms"],
+            card_ms=res["B_card_ms"],
             library="none (GEMM only: torch.matmul f32, TF32 off, "
                     "pre-gathered frames)"),
         row("conv7 (kernel C, 3 layers)", "conv7.cu",
             tpu + "convstack_pallas.py:91", n["conv7_layer"], res["C"],
             res["C_ms"], res["C_plain_ms"], res_bound("C"),
-            res["C_library_ms"], eager_ms=res["C_eager_ms"],
+            res["C_library_ms"], card_ms=res["C_card_ms"],
             library="F.conv2d bf16 channels-last x 3, no leaky ReLU"),
         row("window_copy (#5, six variants; ms summed)",
             "probe_window_copy.cu", "scripts/probe_dma_rate.py:57",
@@ -874,10 +882,13 @@ def main() -> int:
             {"bound_ms": sm["prim_bound_ms"], "bound_by": "bytes"}, None),
     ]
     for k in kernels:
-        log(f"[6 result] {k['name']}: {k['ms']:.4f} ms, bound "
+        card = (f", card {k['card_ms']:.4f} ms "
+                f"({k['bound_ms'] / k['card_ms']:.1%})" if "card_ms" in k
+                else "")
+        log(f"[6 result] {k['name']}: {k['ms']:.4f} ms eager, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}, "
-            f"{k['bound_ms'] / k['ms']:.1%}), plain {k['plain_ms']:.4f} ms, "
-            f"library {k['library_ms']}")
+            f"{k['bound_ms'] / k['ms']:.1%}){card}, plain "
+            f"{k['plain_ms']:.4f} ms, library {k['library_ms']}")
     log(card_line())
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {
