@@ -22,6 +22,7 @@
 #include <torch/library.h>
 
 #include <cstdint>
+#include <optional>
 #include <vector>
 
 // The launchers of csrc/*.cu (plain C; each returns 0 or an error code).
@@ -45,8 +46,9 @@ int akt_octave_response_stage(const void* buf, int in_dtype,
                               const float* bank_hi, const float* bank_lo,
                               const float* scales, int bpo, int n_fft,
                               float* out, int stage, int batch, void* stream);
-int akt_conv7(const void* x, const void* w_packed, const float* bias,
-              void* y, int batch, int H, int T, void* stream);
+int akt_conv7(const void* x, int in_nchw, int in_dtype, int cin,
+              const void* w_packed, const float* bias, void* y, int out_nchw,
+              int out_dtype, int batch, int H, int T, void* stream);
 int akt_window_copy(const void* x, long long stride, int Lpad, int batch,
                     const int* starts, int t_pad, int tile_t, int win,
                     int chunk, int variant, int static_stride, float* out,
@@ -154,14 +156,24 @@ at::Tensor octave_response_stage(const at::Tensor& ypad,
   return out;
 }
 
+// x channels-last (B, H, T, 8), or NCHW (B, cin, H, T) with nchw_in; the
+// output channels-last bf16, or NCHW in nchw_out's dtype.
 at::Tensor conv7(const at::Tensor& x, const at::Tensor& w_packed,
-                 const at::Tensor& bias) {
+                 const at::Tensor& bias, bool nchw_in,
+                 std::optional<c10::ScalarType> nchw_out) {
   same_device(x, {&w_packed, &bias}, "akt::conv7");
+  TORCH_CHECK(x.dim() == 4, "akt::conv7: x must be 4-d, got ", x.sizes());
   const c10::cuda::CUDAGuard guard(x.device());
-  at::Tensor y = at::empty(x.sizes(), x.options());
-  check_rc(akt_conv7(x.data_ptr(), w_packed.data_ptr(),
-                     bias.data_ptr<float>(), y.data_ptr(), x.size(0),
-                     x.size(1), x.size(2), stream()),
+  const int64_t B = x.size(0), cin = nchw_in ? x.size(1) : x.size(3);
+  const int64_t H = nchw_in ? x.size(2) : x.size(1);
+  const int64_t T = nchw_in ? x.size(3) : x.size(2);
+  at::Tensor y =
+      nchw_out ? at::empty({B, 8, H, T}, x.options().dtype(*nchw_out))
+               : at::empty({B, H, T, 8}, x.options().dtype(at::kBFloat16));
+  check_rc(akt_conv7(x.data_ptr(), nchw_in, dtype_code(x.scalar_type()), cin,
+                     w_packed.data_ptr(), bias.data_ptr<float>(),
+                     y.data_ptr(), nchw_out.has_value(),
+                     dtype_code(y.scalar_type()), B, H, T, stream()),
            "conv7_layer (kernel C)");
   return y;
 }
@@ -227,7 +239,8 @@ TORCH_LIBRARY(akt, m) {
         "Tensor scales, Tensor(a!) out) -> ()");
   m.def("octave_response_stage(Tensor ypad, Tensor starts, Tensor bank_hi, "
         "Tensor bank_lo, Tensor scales, int stage) -> Tensor");
-  m.def("conv7(Tensor x, Tensor w_packed, Tensor bias) -> Tensor");
+  m.def("conv7(Tensor x, Tensor w_packed, Tensor bias, bool nchw_in, "
+        "ScalarType? nchw_out) -> Tensor");
   m.def("window_copy(Tensor x, Tensor starts, int tile_t, int win, "
         "int chunk, int variant, int static_stride) -> Tensor");
   m.def("transpose_pad(Tensor y, int half, int lfull) -> Tensor");

@@ -5,17 +5,25 @@ leaky-ReLU, x conv_layers, <= 8 channels, 8 outputs) runs as one kernel
 launch per layer, csrc/conv7.cu (replaces the JAX package's
 `ops/convstack_pallas.py::_conv7_layer`), with BatchNorm folded into the
 weights in float32 outside the kernel, then cast to bf16 as the JAX
-package does (`convstack_pallas.py:303-307`). Activations between layers stay bf16,
-channels-last (B, H, T, 8); accumulation is float32.
+package does (`convstack_pallas.py:303-307`) and packed once per stack
+call in the kernel's fragment order (`pack_stack`). The first layer reads
+the stack's NCHW input in its own dtype and rounds it to bf16 on load;
+activations between layers are bf16 channels-last (B, H, T, 8); the last
+layer writes NCHW in the stack's dtype from the bf16-rounded value
+(`y.astype(self.dtype)` in the JAX package); accumulation is float32.
 
 `conv7_layer` launches the kernel for a CUDA tensor (or raises) and runs
 its plain PyTorch version only for a CPU tensor; `conv7_layer.launches`
-counts kernel launches. `conv7_layer_plain` in float32 is the exact
-folded stack (tests pin it to the flax ConvStack); in bf16 it reproduces
-the kernel's numerics (bf16 operands, f32 sums, bf16 output).
+counts kernel launches. `conv7_layer_plain` and `fused_convstack_plain`
+compute the same functions: with bf16 weights they reproduce the
+kernel's numerics (bf16 operands, f32 sums, bf16 activations), with
+float32 weights they are the exact folded stack (tests pin it to the flax
+ConvStack).
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 import torch.nn.functional as F
@@ -26,6 +34,8 @@ from .equivariant import circular_pad
 LEAKY_SLOPE = 0.01
 C = 8          # supported output channels; inputs pad up to this width
 KERNEL = 7
+PACKED = (KERNEL, 4, 2, C, C)      # [dh][tap pair][half][co][ci]
+STACK_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def fold_bn_affine(gamma, beta, mean, var, eps: float = 1e-5):
@@ -48,56 +58,97 @@ def supported_geometry(H: int, T: int, cins) -> bool:
     return H >= 3 and T >= 3 and all(1 <= ci <= C for ci in cins)
 
 
-def to_channels_last(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
-    """(B, Cin, H, T) -> (B, H, T, 8) contiguous, channels zero-padded."""
-    x = x.permute(0, 2, 3, 1).to(dtype)
-    return F.pad(x, (0, C - x.shape[-1])).contiguous()
-
-
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
-    """(8, ci, 7, 7) folded bf16 weight -> (50, 8, 8) [tap][co][ci] with
-    tap = dh*7 + dt; tap 49 and ci >= ci_true are zero."""
-    co, ci = weight.shape[:2]
-    w = weight.permute(2, 3, 0, 1).reshape(KERNEL * KERNEL, co, ci)
-    return F.pad(w, (0, C - ci, 0, 0, 0, 1)).contiguous()
+    """(..., 8, ci, 7, 7) folded weight -> (..., 7, 4, 2, 8, 8) in kernel
+    C's B-fragment order: [dh][p][half][co][ci] = weight[co, ci, dh,
+    2p + half]; tap dt = 7 and ci >= ci_true are zero."""
+    w = F.pad(weight, (0, 1, 0, 0, 0, C - weight.shape[-3]))
+    w = w.unflatten(-1, (4, 2))                 # (..., co, ci, dh, p, half)
+    n = w.dim() - 5
+    return w.permute(*range(n), n + 2, n + 3, n + 4, n, n + 1).contiguous()
 
 
-def conv7_layer_plain(x: torch.Tensor, weight: torch.Tensor,
-                      bias: torch.Tensor) -> torch.Tensor:
-    """Plain version of kernel C: x (B, H, T, 8) channels-last, weight
-    (8, ci, 7, 7) folded, bias (8,) float32 -> (B, H, T, 8) in x's dtype,
-    computed in float32 from x's and weight's values."""
-    ci = weight.shape[1]
-    xf = x[..., :ci].permute(0, 3, 1, 2).float()
-    y = F.conv2d(circular_pad(xf, 3, 3), weight.float()) \
-        + bias.float()[None, :, None, None]
-    y = torch.where(y >= 0, y, LEAKY_SLOPE * y)
-    return y.permute(0, 2, 3, 1).to(x.dtype).contiguous()
+def unpack_weight(wp: torch.Tensor) -> torch.Tensor:
+    """pack_weight's (7, 4, 2, 8, 8) -> the (8, 8, 7, 7) OIHW weight, the
+    padded input channels included (zero)."""
+    return wp.reshape(KERNEL, 2 * 4, C, C).permute(2, 3, 0, 1)[..., :KERNEL]
 
 
-def conv7_layer(x: torch.Tensor, weight: torch.Tensor,
-                bias: torch.Tensor) -> torch.Tensor:
+@functools.lru_cache(maxsize=16)
+def _pack_map(cins: tuple, device: str):
+    """pack_stack's gather: for each element of the packed (L, 7, 4, 2, 8,
+    8) weights, its index in pack_stack's flat tensor (a zero, then every
+    layer's weight, then the biases), or 0 where pack_weight pads; and
+    that leading zero."""
+    codes, n = [], 1
+    for ci in cins:
+        w = torch.arange(n, n + C * ci * KERNEL * KERNEL, dtype=torch.float64)
+        codes.append(pack_weight(w.reshape(C, ci, KERNEL, KERNEL)))
+        n += w.numel()
+    return (torch.stack(codes).long().to(device),
+            torch.zeros(1, device=device))
+
+
+def pack_stack(layers, dtype: torch.dtype = torch.bfloat16):
+    """[(weight (8, ci, 7, 7), bias (8,)) folded in float32, ...] ->
+    (weights (L, 7, 4, 2, 8, 8) in dtype, pack_weight's order; biases
+    (L, 8) float32), for the whole stack in three kernels: one
+    concatenation, one cast and one gather."""
+    idx, zero = _pack_map(tuple(w.shape[1] for w, _ in layers),
+                          str(layers[0][0].device))
+    flat = torch.cat([zero.to(layers[0][0].dtype)]
+                     + [w.reshape(-1) for w, _ in layers]
+                     + [b.reshape(-1) for _, b in layers])
+    n = flat.numel() - C * len(layers)
+    return flat.to(dtype)[idx], flat[n:].view(len(layers), C).float()
+
+
+def conv7_layer_plain(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
+                      nchw_in: bool = False,
+                      nchw_out: torch.dtype | None = None) -> torch.Tensor:
+    """Plain version of kernel C. x (B, H, T, 8) channels-last, or
+    (B, ci, H, T) with nchw_in; wp pack_weight's (7, 4, 2, 8, 8); bias
+    (8,). Computed in float32 from x rounded to wp's dtype; the result is
+    rounded to wp's dtype and returned channels-last in it, or NCHW
+    (B, 8, H, T) in nchw_out."""
+    xf = (x if nchw_in else x.permute(0, 3, 1, 2)).to(wp.dtype).float()
+    w = unpack_weight(wp)[:, :xf.shape[1]].float()
+    y = F.conv2d(circular_pad(xf, 3, 3), w) + bias.float()[None, :, None, None]
+    y = torch.where(y >= 0, y, LEAKY_SLOPE * y).to(wp.dtype)
+    if nchw_out is None:
+        return y.permute(0, 2, 3, 1).contiguous()
+    return y.to(nchw_out)
+
+
+def conv7_layer(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
+                nchw_in: bool = False,
+                nchw_out: torch.dtype | None = None) -> torch.Tensor:
     """One folded conv + leaky layer (kernel C on CUDA, plain on CPU).
 
-    x (B, H, T, 8) bf16 channels-last; weight (8, ci, 7, 7) bf16 folded;
-    bias (8,) float32.
+    x (B, H, T, 8) bf16 channels-last, or (B, ci, H, T) float32 or bf16
+    with nchw_in; wp (7, 4, 2, 8, 8) bf16 (pack_weight); bias (8,)
+    float32. Returns (B, H, T, 8) bf16, or (B, 8, H, T) in nchw_out
+    (float32 or bf16).
     """
     if x.is_cpu:
-        return conv7_layer_plain(x, weight, bias)
+        return conv7_layer_plain(x, wp, bias, nchw_in, nchw_out)
     if not x.is_cuda:
         raise ValueError(f"conv7_layer: unsupported device {x.device}")
-    _, H, T, c = x.shape
-    if (x.dtype != torch.bfloat16 or weight.dtype != torch.bfloat16
-            or c != C or not x.is_contiguous() or x.data_ptr() % 16
-            or tuple(weight.shape[:1]) + tuple(weight.shape[2:]) != (C, 7, 7)
-            or bias.shape != (C,)
-            or not supported_geometry(H, T, [weight.shape[1]])):
+    dims = tuple(x.shape) if x.dim() == 4 else (0, 0, 0, 0)
+    _, ci, H, T = dims if nchw_in else (dims[0], dims[3], *dims[1:3])
+    if (not x.is_contiguous()
+            or x.dtype not in (STACK_DTYPES if nchw_in else (torch.bfloat16,))
+            or x.data_ptr() % 16 or (not nchw_in and ci != C)
+            or not supported_geometry(H, T, [ci])
+            or nchw_out not in (None, *STACK_DTYPES)
+            or wp.dtype != torch.bfloat16 or tuple(wp.shape) != PACKED
+            or not wp.is_contiguous() or bias.dtype != torch.float32
+            or bias.shape != (C,) or not bias.is_contiguous()):
         raise ValueError(f"conv7_layer: unsupported x {x.dtype} "
-                         f"{tuple(x.shape)}, weight {weight.dtype} "
-                         f"{tuple(weight.shape)}, bias {tuple(bias.shape)}")
-    wp = pack_weight(weight)
-    bias = bias.to(device=x.device, dtype=torch.float32).contiguous()
-    y = _build.op("conv7")(x, wp, bias)
+                         f"{tuple(x.shape)} (nchw_in={nchw_in}, nchw_out="
+                         f"{nchw_out}), weight {wp.dtype} {tuple(wp.shape)}, "
+                         f"bias {bias.dtype} {tuple(bias.shape)}")
+    y = _build.op("conv7")(x, wp, bias, nchw_in, nchw_out)
     conv7_layer.launches += 1
     return y
 
@@ -105,11 +156,27 @@ def conv7_layer(x: torch.Tensor, weight: torch.Tensor,
 conv7_layer.launches = 0
 
 
+def _stack(x: torch.Tensor, layers, layer, dtype: torch.dtype):
+    if x.dtype not in STACK_DTYPES:
+        raise ValueError(f"fused_convstack: unsupported dtype {x.dtype}")
+    wp, bias = pack_stack(layers, dtype)
+    last = len(layers) - 1
+    h = x
+    for i in range(len(layers)):
+        h = layer(h, wp[i], bias[i], i == 0, x.dtype if i == last else None)
+    return h
+
+
 def fused_convstack(x: torch.Tensor, layers) -> torch.Tensor:
-    """Serving-path ConvStack: x (B, Cin, H, T) -> (B, 8, H, T) in x's
-    dtype, through bf16 activations. layers: [(weight (8, ci, 7, 7),
-    bias (8,)), ...] folded in float32."""
-    h = to_channels_last(x, torch.bfloat16)
-    for w, b in layers:
-        h = conv7_layer(h, w.to(torch.bfloat16), b)
-    return h.permute(0, 3, 1, 2).to(x.dtype)
+    """Serving-path ConvStack: x (B, Cin, H, T) float32 or bf16 ->
+    (B, 8, H, T) in x's dtype, one kernel C launch per layer through bf16
+    activations. layers: [(weight (8, ci, 7, 7), bias (8,)), ...] folded
+    in float32."""
+    return _stack(x, layers, conv7_layer, torch.bfloat16)
+
+
+def fused_convstack_plain(x: torch.Tensor, layers,
+                          dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """fused_convstack's plain version, in the working dtype: bf16 is the
+    kernels' numerics, float32 the exact folded stack."""
+    return _stack(x, layers, conv7_layer_plain, dtype)

@@ -13,20 +13,24 @@ non-zero):
   3 kernels  hold each kernel against its plain PyTorch version at the
              serving path's shapes (16 clips x 120 s PCM16 at 22050 Hz:
              kernel A's 7 octave steps into the stream arena, kernel B's
-             one launch over all 8 octaves; the 5->8->8->8 ConvStack at
-             (16, 288, 601)) and time both with CUDA events (warm-up,
-             median of 20; kernels A, B, C also replayed from a CUDA
-             graph, the card's time without the host's), beside the
+             one launch over all 8 octaves; kernel C per layer and the
+             served function fused_convstack, 5->8->8->8 from float32
+             NCHW to float32 NCHW at (16, 288, 601), also at T = 901 and
+             its middle layer alone) and time both with CUDA events
+             (warm-up, median of 20; kernels A, B, C also replayed from a
+             CUDA graph, the card's time without the host's), beside the
              library call that computes the
              same function where there is one, and the bound from the
              shapes (bytes over 3.35 TB/s or operations over the peak of
              their type); then small edge geometries (odd B, other rates,
-             n_fft 8192, T = H = 3);
+             n_fft 8192, T = H = 3, kernel C in every layout and dtype);
   4 serve    KeyEstimator(Config(fused_convstack=True), seeded weights,
              device="cuda").predict_files on 16 PCM16 WAVs, with every
              kernel's launch count checked (A 7, B 1, C 3), against the
              plain path (use_pallas_cqt="off", fused_convstack=False) on
-             the card and, for two 10 s clips, on the CPU;
+             the card and, for two 10 s clips, on the CPU; the stage
+             split, and one torch.profiler pass over the model stage
+             (kernel C's device time against the rest);
   5 probes   the probe and experiment kernels (ops/probes_cuda.py and
              kernel B's stage split) against their plain versions at a
              small geometry and at the serving geometry, exact for the
@@ -49,6 +53,7 @@ import time
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from audio_key_estimation_torch.config import Config
 from audio_key_estimation_torch.data import audio_io
@@ -97,12 +102,45 @@ def pcm16(y: np.ndarray) -> np.ndarray:
     return np.round(np.clip(y, -1.0, 1.0) * 32767.0).astype(np.int16)
 
 
-def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
-    """Max distance in bf16 units in the last place between a and b."""
+def bf16_ulp_map(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Distance in bf16 units in the last place between a and b."""
     def ordered(x):
         i = x.contiguous().view(torch.int16).int()
         return torch.where(i < 0, -(i & 0x7FFF), i)
-    return int((ordered(a) - ordered(b)).abs().max())
+    return (ordered(a) - ordered(b)).abs()
+
+
+def bf16_ulps(a: torch.Tensor, b: torch.Tensor) -> int:
+    """Max distance in bf16 units in the last place between a and b."""
+    return int(bf16_ulp_map(a, b).max())
+
+
+def check_conv7(name, got, ref, x, wp, nchw_in, nchw_out) -> dict:
+    """Kernel C's result against its plain version on the same inputs:
+    within 1 bf16 ulp, except where the layer's float32 sum cancels: the
+    kernel and cuDNN add the same products in other orders, each within
+    n u S of the exact sum (n = 49 ci products, u = 2^-24, S the sum of
+    their absolute values), so an element may differ by 2 n u S plus one
+    ulp, which is many ulps of a result near zero. S comes from the plain
+    version on |x| and |w|."""
+    if got.shape != ref.shape or got.dtype != ref.dtype:
+        raise AssertionError(f"{name}: {tuple(got.shape)} {got.dtype} vs "
+                             f"{tuple(ref.shape)} {ref.dtype}")
+    ulps = bf16_ulp_map(got.to(torch.bfloat16), ref.to(torch.bfloat16))
+    beyond = ulps > 1
+    if bool(beyond.any()):
+        n = 49 * (x.shape[1] if nchw_in else 8)
+        s = CS.conv7_layer_plain(x.abs(), wp.abs(), torch.zeros(
+            8, device=x.device), nchw_in, nchw_out).float()
+        d = (got.float() - ref.float()).abs()
+        allowed = 2.0 ** -7 * ref.float().abs() + 2 * n * 2.0 ** -24 * 1.01 * s
+        if bool((d > allowed)[beyond].any()):
+            raise AssertionError(f"{name}: {int(beyond.sum())} elements "
+                                 f"beyond 1 bf16 ulp, some beyond the "
+                                 f"float32 sum bound; max |d| "
+                                 f"{float(d.max()):.3g}")
+    return {"max_ulps": int(ulps.max()), "beyond_1ulp": int(beyond.sum()),
+            "max_abs_err": float((got.float() - ref.float()).abs().max())}
 
 
 def check_close(name, got, ref, rtol, atol) -> float:
@@ -334,85 +372,170 @@ def check_cqt_kernels(y: torch.Tensor, p: C.CQTParams) -> dict:
     return res
 
 
-def check_conv_kernel(device) -> dict:
-    """Kernel C on the layer-1 Pitch2Pitch stack 5->8->8->8 at
-    (16, 288, 601), same bf16 inputs and weights on both sides."""
-    g = np.random.default_rng(1)
-    B, H, T = BATCH, 288, 601
+def conv_layers(g: np.random.Generator, device, cins=(5, 8, 8)) -> list:
+    """Folded float32 (weight (8, ci, 7, 7), bias (8,)) per layer, with a
+    BatchNorm-like scale and shift drawn from g."""
     layers = []
-    for ci in (5, 8, 8):
+    for ci in cins:
         w = g.standard_normal((8, ci, 7, 7)) * (0.5 / np.sqrt(49 * ci))
         s = 1.0 + 0.2 * g.standard_normal(8)
         t = 0.1 * g.standard_normal(8)
         b = 0.1 * g.standard_normal(8)
         layers.append((torch.tensor(w * s[:, None, None, None],
-                                    dtype=torch.float32, device=device)
-                       .to(torch.bfloat16),
+                                    dtype=torch.float32, device=device),
                        torch.tensor(b * s + t, dtype=torch.float32,
                                     device=device)))
+    return layers
+
+
+def stack_bytes(B: int, H: int, T: int, cin: int, n: int,
+                item: int = 4) -> int:
+    """What fused_convstack must move: the NCHW input read once, each
+    bf16 channels-last intermediate written once and read once, the NCHW
+    output written once."""
+    return B * H * T * (cin * item + (n - 1) * 2 * 8 * 2 + 8 * item)
+
+
+def check_conv_kernel(device) -> dict:
+    """Kernel C on the layer-1 Pitch2Pitch stack 5->8->8->8 at
+    (16, 288, 601): each layer within 1 bf16 ulp of its plain version on
+    the same inputs (NCHW float32 in, channels-last bf16 between, NCHW
+    float32 out), the stack against the plain stack; the served function
+    fused_convstack timed from its float32 NCHW input to its float32
+    output, beside the middle layer alone, the 180 s bucket (T = 901) and
+    cuDNN's bf16 conv2d."""
+    g = np.random.default_rng(1)
+    B, H, T = BATCH, 288, 601
+    layers = conv_layers(g, device)
     x = torch.tensor(g.standard_normal((B, 5, H, T)), dtype=torch.float32,
                      device=device)
-    h = CS.to_channels_last(x, torch.bfloat16)
-    res = {"C": 0.0}
-    hk = hp = h
+    wp, bias = CS.pack_stack(layers)
+    res = {"C": 0.0, "C_layers": []}
+    n = len(layers)
+    hk = hp = x
     plain_inputs = []
-    for i, (w, b) in enumerate(layers):
-        got = CS.conv7_layer(hk, w, b)
-        ref = CS.conv7_layer_plain(hk, w, b)
-        res["C"] = max(res["C"], float((got.float() - ref.float())
-                                       .abs().max()))
+    for i in range(n):
+        kw = dict(nchw_in=i == 0, nchw_out=torch.float32 if i == n - 1
+                  else None)
+        got = CS.conv7_layer(hk, wp[i], bias[i], **kw)
+        ref = CS.conv7_layer_plain(hk, wp[i], bias[i], **kw)
+        c = check_conv7(f"kernel C layer {i}", got, ref, hk, wp[i], **kw)
+        res["C"] = max(res["C"], c["max_abs_err"])
+        res["C_layers"].append(c)
         plain_inputs.append(hp)
-        hk, hp = got, CS.conv7_layer_plain(hp, w, b)
-    got, ref = hk.float(), hp.float()
-    rel = float((got - ref).abs().max() / ref.abs().max())
-    mean_rel = float((got - ref).abs().mean() / ref.abs().mean())
+        hk, hp = got, CS.conv7_layer_plain(hp, wp[i], bias[i], **kw)
+    stack = CS.fused_convstack(x, layers)
+    if not torch.equal(stack, hk):
+        raise AssertionError("fused_convstack differs from its layers")
+    ref = CS.fused_convstack_plain(x, layers)
+    rel = float((stack - ref).abs().max() / ref.abs().max())
+    mean_rel = float((stack - ref).abs().mean() / ref.abs().mean())
     if not (rel < 5e-2 and mean_rel < 1e-2):
         raise AssertionError(f"kernel C stack: max rel {rel:.3g}, mean rel "
                              f"{mean_rel:.3g}")
 
-    def stack(fn):
-        def go():
-            z = h
-            for w, b in layers:
-                z = fn(z, w, b)
-        return go
-
-    # library yardstick of C: cuDNN's bf16 conv2d, channels-last, on each
-    # layer's circularly pre-padded input with the folded weights and
-    # bias; the leaky ReLU is not in it
-    lib = []
-    for hi, (w, b) in zip(plain_inputs, layers):
-        ci = w.shape[1]
-        xi = equivariant.circular_pad(hi[..., :ci].permute(0, 3, 1, 2), 3, 3)
-        lib.append((xi.contiguous(memory_format=torch.channels_last),
-                    w.contiguous(memory_format=torch.channels_last),
-                    b.to(torch.bfloat16)))
-
-    def c_library():
-        for xi, w, b in lib:
-            torch.nn.functional.conv2d(xi, w, b)
-
-    res["C_ms"] = time_ms(stack(CS.conv7_layer))
-    res["C_card_ms"] = graph_ms(stack(CS.conv7_layer))
-    res["C_plain_ms"] = time_ms(stack(CS.conv7_layer_plain))
-    res["C_library_ms"] = time_ms(c_library)
+    res["C_ms"] = time_ms(lambda: CS.fused_convstack(x, layers))
+    res["C_card_ms"] = graph_ms(lambda: CS.fused_convstack(x, layers))
+    res["C_plain_ms"] = time_ms(lambda: CS.fused_convstack_plain(x, layers))
     flops = sum(2 * B * H * T * 8 * w.shape[1] * 49 for w, _ in layers)
-    put_bound(res, "C", bound(len(layers) * 2 * B * H * T * 8 * 2, flops,
+    put_bound(res, "C", bound(stack_bytes(B, H, T, 5, n), flops,
                               BF16_FLOPS))
-    log(f"[3 kernels] C (3-layer stack): max|d| per layer {res['C']:.3g}, "
-        f"stack max rel {rel:.3g} mean rel {mean_rel:.3g}; "
-        f"{res['C_ms']:.4f} ms eager, {res['C_card_ms']:.4f} on the card "
-        f"vs plain {res['C_plain_ms']:.4f} ms, "
-        f"library conv2d bf16 x 3 (no leaky ReLU) "
-        f"{res['C_library_ms']:.4f} ms; {share(res, 'C')}")
+    # the middle layer alone: channels-last bf16 in and out
+    h1 = plain_inputs[1]
+    res["C_mid_card_ms"] = graph_ms(lambda: CS.conv7_layer(h1, wp[1],
+                                                           bias[1]))
+    put_bound(res, "C_mid", bound(2 * B * H * T * 8 * 2,
+                                  2 * B * H * T * 8 * 8 * 49, BF16_FLOPS))
+    # the served 180 s bucket
+    x901 = torch.tensor(g.standard_normal((B, 5, H, 901)),
+                        dtype=torch.float32, device=device)
+    res["C_901_card_ms"] = graph_ms(lambda: CS.fused_convstack(x901, layers))
+    put_bound(res, "C_901", bound(
+        stack_bytes(B, H, 901, 5, n),
+        sum(2 * B * H * 901 * 8 * w.shape[1] * 49 for w, _ in layers),
+        BF16_FLOPS))
+    del x901
+    res.update(conv_library(plain_inputs, wp, bias, x))
+    log(f"[3 kernels] C (3-layer stack, fused_convstack f32 NCHW in and "
+        f"out): max|d| per layer {res['C']:.3g}; elements beyond 1 bf16 ulp "
+        f"(all within the float32 sum bound) per layer "
+        f"{[c['beyond_1ulp'] for c in res['C_layers']]} of {B * H * T * 8}, "
+        f"max {[c['max_ulps'] for c in res['C_layers']]} ulps; stack max "
+        f"rel {rel:.3g} mean rel {mean_rel:.3g}; {res['C_ms']:.4f} ms eager, "
+        f"{res['C_card_ms']:.4f} on the card vs plain "
+        f"{res['C_plain_ms']:.4f} ms; {share(res, 'C')}; library cuDNN "
+        f"bf16 conv2d x 3, channels padded to 8, benchmark on, best of "
+        f"{res['C_library_fmt']}: {res['C_library_ms']:.4f} ms (the old "
+        f"yardstick, 5 channels, benchmark off: "
+        f"{res['C_library_old_ms']:.4f} ms)")
+    log(f"[3 kernels] C middle layer alone (bf16 channels-last in and out): "
+        f"{res['C_mid_card_ms']:.4f} ms on the card, bound "
+        f"{res['C_mid_bound_ms']:.4f} ms ({res['C_mid_bound_by']}, "
+        f"{res['C_mid_bound_ms'] / res['C_mid_card_ms']:.1%}); stack at "
+        f"T = 901: {res['C_901_card_ms']:.4f} ms on the card, bound "
+        f"{res['C_901_bound_ms']:.4f} ms "
+        f"({res['C_901_bound_ms'] / res['C_901_card_ms']:.1%})")
+    return res
+
+
+def conv_library(plain_inputs, wp, bias, x) -> dict:
+    """cuDNN's bf16 conv2d, one call per layer on the layer's circularly
+    pre-padded input, with the folded weights and bias (no leaky ReLU).
+    The fair yardstick pads the first layer to 8 channels (zero weights)
+    so cuDNN may take its tensor-core paths, lets the warm-up choose the
+    algorithm (cudnn.benchmark on, restored after) and takes the faster
+    of channels-last and NCHW. The old one (unpadded 5 channels,
+    channels-last, benchmark off) is kept beside it."""
+    n = len(plain_inputs)
+    ws = [CS.unpack_weight(wp[i]).contiguous() for i in range(n)]
+    bs = [bias[i].to(torch.bfloat16) for i in range(n)]
+
+    def nchw8(i, h):
+        h = h.to(torch.bfloat16)
+        if i == 0:
+            return F.pad(h, (0, 0, 0, 0, 0, 8 - h.shape[1]))
+        return h.permute(0, 3, 1, 2)
+    padded = [equivariant.circular_pad(nchw8(i, h), 3, 3)
+              for i, h in enumerate(plain_inputs)]
+
+    def run(args):
+        return lambda: [F.conv2d(xi, w, b) for xi, w, b in args]
+    res = {}
+    prev = torch.backends.cudnn.benchmark
+    try:
+        torch.backends.cudnn.benchmark = True
+        fmts = {}
+        for fmt in (torch.channels_last, torch.contiguous_format):
+            args = [(xi.contiguous(memory_format=fmt),
+                     w.contiguous(memory_format=fmt), b)
+                    for xi, w, b in zip(padded, ws, bs)]
+            fmts[str(fmt).split(".")[-1]] = time_ms(run(args))
+            del args
+    finally:
+        torch.backends.cudnn.benchmark = prev
+    res["C_library_fmt"] = min(fmts, key=fmts.get)
+    res["C_library_ms"] = fmts[res["C_library_fmt"]]
+    res["C_library_fmts"] = fmts
+    del padded
+    old = []
+    for i, h in enumerate(plain_inputs):
+        xi = h.to(torch.bfloat16) if i == 0 else h.permute(0, 3, 1, 2)
+        ci = xi.shape[1]
+        old.append((equivariant.circular_pad(xi, 3, 3).contiguous(
+            memory_format=torch.channels_last),
+            ws[i][:, :ci].contiguous(memory_format=torch.channels_last),
+            bs[i]))
+    res["C_library_old_ms"] = time_ms(run(old))
     return res
 
 
 def check_edge_geometries(device) -> None:
     """Small shapes off the main path: odd batches, other sample rates
     and bin counts, n_fft 8192 (overlapping windows), streams shorter
-    than the reflect pad, float input; kernel C at T = H = 3 and ragged
-    tiles. Kernel vs plain at the same bars as the main-path checks."""
+    than the reflect pad, float input; kernel C at T = H = 3, ragged time
+    tiles and H not a multiple of its 8 rows, in every input and output
+    layout and dtype, and float32 and bf16 stacks. Kernel vs plain at the
+    same bars as the main-path checks."""
     g = np.random.default_rng(2)
     cases = [  # (sr, hop, bins/octave, octaves, B, seconds, int16?)
         (8000, 1600, 12, 3, 3, 2.0, True),
@@ -432,21 +555,58 @@ def check_edge_geometries(device) -> None:
             elif float((got - ref).abs().max()) > 0.02 * float(
                     ref.abs().max()):
                 raise AssertionError(f"cqt_cuda bf16 {p} B={B}")
+    n_conv = beyond = 0
     for B, ci, H, T in [(1, 5, 3, 3), (3, 8, 7, 65), (2, 5, 288, 5),
-                        (1, 8, 9, 130)]:
-        x = torch.tensor(g.standard_normal((B, H, T, 8)), dtype=torch.float32,
-                         device=device)
-        x[..., ci:] = 0
-        x = x.to(torch.bfloat16)
-        w = torch.tensor(g.standard_normal((8, ci, 7, 7)) * 0.05,
-                         dtype=torch.float32, device=device).to(torch.bfloat16)
-        b = torch.tensor(g.standard_normal(8) * 0.1, dtype=torch.float32,
-                         device=device)
-        ulps = bf16_ulps(CS.conv7_layer(x, w, b), CS.conv7_layer_plain(x, w, b))
-        if ulps > 1:
-            raise AssertionError(f"kernel C at {(B, ci, H, T)}: {ulps} ulps")
+                        (1, 8, 9, 130), (3, 5, 11, 129), (2, 8, 20, 601)]:
+        layers = conv_layers(g, device, (ci,))
+        wp, bias = CS.pack_stack(layers)
+        x = torch.tensor(g.standard_normal((B, ci, H, T)),
+                         dtype=torch.float32, device=device)
+        nhwc = F.pad(x.permute(0, 2, 3, 1), (0, 8 - ci)).to(
+            torch.bfloat16).contiguous()
+        # (input, nchw_in, nchw_out): every layout and dtype the stack uses
+        for xi, nchw_in, nchw_out in [
+                (nhwc, False, None), (x, True, None),
+                (x.to(torch.bfloat16), True, None),
+                (nhwc, False, torch.float32), (nhwc, False, torch.bfloat16),
+                (x, True, torch.float32),
+                (x.to(torch.bfloat16), True, torch.bfloat16)]:
+            got = CS.conv7_layer(xi, wp[0], bias[0], nchw_in, nchw_out)
+            ref = CS.conv7_layer_plain(xi, wp[0], bias[0], nchw_in, nchw_out)
+            c = check_conv7(f"kernel C at {(B, ci, H, T)}, nchw_in "
+                            f"{nchw_in}, nchw_out {nchw_out}", got, ref, xi,
+                            wp[0], nchw_in, nchw_out)
+            n_conv += 1
+            beyond += c["beyond_1ulp"]
+        stacked = conv_layers(g, device, (ci, 8, 8))
+        for xi in (x, x.to(torch.bfloat16)):
+            got = CS.fused_convstack(xi, stacked)
+            ref = CS.fused_convstack_plain(xi, stacked)
+            d = (got.float() - ref.float()).abs()
+            if got.dtype != xi.dtype or got.shape != (B, 8, H, T) or not (
+                    float(d.max()) < 5e-2 * float(ref.float().abs().max())
+                    and float(d.mean()) < 1e-2 * float(
+                        ref.float().abs().mean())):
+                raise AssertionError(f"fused_convstack {xi.dtype} at "
+                                     f"{(B, ci, H, T)}")
+    # a CUDA tensor the kernel does not take raises; nothing falls back
+    refused = 0
+    for bad in (lambda: CS.conv7_layer(nhwc.half(), wp[0], bias[0]),
+                lambda: CS.conv7_layer(nhwc[:, :, 1:], wp[0], bias[0]),
+                lambda: CS.conv7_layer(x.double(), wp[0], bias[0], True),
+                lambda: CS.conv7_layer(nhwc, wp[0].float(), bias[0]),
+                lambda: CS.fused_convstack(x.half(), stacked)):
+        try:
+            bad()
+        except ValueError:
+            refused += 1
+    if refused != 5:
+        raise AssertionError(f"kernel C took {5 - refused} bad calls")
     log(f"[3 kernels] edge geometries: {len(cases)} CQT cases x 2 stream "
-        "dtypes and 4 conv7 cases match their plain versions")
+        f"dtypes, {n_conv} conv7 cases (6 geometries x 7 layouts; "
+        f"{beyond} elements beyond 1 bf16 ulp, within the float32 sum "
+        "bound) and 12 stacks match their plain versions; 5 unsupported "
+        "kernel C calls raised")
 
 
 # ---------------------------------------------------------------------------
@@ -507,6 +667,7 @@ def serve(paths, device) -> dict:
     dcpu = cpu_cross_check(est, weights, cfg)
     audio_min = len(paths) * CLIP_SECONDS / 60.0
     stages = stage_ms(est, paths)
+    split = model_split(est, paths)
     log(f"[4 serve] {len(preds)} predictions, launches {launches}; key "
         f"|d| vs plain {dkey:.3g}, tonic |d| {dtonic:.3g}; "
         f"e.g. {preds[0].key!r} / plain {ref[0].key!r}; small input vs "
@@ -517,8 +678,16 @@ def serve(paths, device) -> dict:
         f"audio-min/s ({card_line()})")
     log("[4 serve] stages (host clock, each ending in a synchronize): "
         + ", ".join(f"{k} {v:.1f} ms" for k, v in stages.items()))
+    log(f"[4 serve] model stage on the card (torch.profiler, device rows "
+        f"only, TF32 for cuDNN {split['tf32']}): {split['total_ms']:.3f} ms "
+        f"in {split['kernels']} kernels; kernel C {split['conv7_ms']:.3f} ms "
+        f"({split['conv7_ms'] / split['total_ms']:.1%}, "
+        f"{split['conv7_launches']} launches), the rest "
+        f"{split['total_ms'] - split['conv7_ms']:.3f} ms; largest: "
+        + "; ".join(f"{k[:60]} {v:.3f} ms" for k, v in split['top']))
     return {"launches": launches, "key_d": dkey, "tonic_d": dtonic,
-            "wall_ms": wall * 1e3, "plain_wall_ms": wall_plain * 1e3}
+            "wall_ms": wall * 1e3, "plain_wall_ms": wall_plain * 1e3,
+            "split": split}
 
 
 def cpu_cross_check(est: KeyEstimator, weights, cfg: Config) -> float:
@@ -556,6 +725,43 @@ def stage_ms(est: KeyEstimator, paths) -> dict:
         t.append(time.perf_counter())
     names = ("decode", "batch+H2D", "cqt", "model")
     return {n: (b - a) * 1e3 for n, a, b in zip(names, t, t[1:])}
+
+
+def model_split(est: KeyEstimator, paths) -> dict:
+    """The model stage of one served batch on the card: one
+    torch.profiler pass over est.model, device rows only (kernels and
+    copies; the host's aten rows carry the same time again), kernel C's
+    rows against the rest and the largest rows by name."""
+    decoded = list(audio_io.decode_many(paths))
+    sr = decoded[0][1]
+    batch, seq, hop = est.make_batch([w for w, _ in decoded], sr)
+    act = torch.profiler.ProfilerActivity
+    with torch.inference_mode():
+        mel = est.features(batch, sr, hop)
+        est.model(mel, seq)
+        torch.cuda.synchronize()
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            est.model(mel, seq)
+            torch.cuda.synchronize()
+    rows = {}
+    n = conv7 = 0
+    conv7_us = 0.0
+    for e in prof.events():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = e.time_range.elapsed_us()
+        rows[e.name] = rows.get(e.name, 0.0) + us / 1e3
+        n += 1
+        if "conv7_kernel" in e.name:
+            conv7 += 1
+            conv7_us += us
+    if not n or not conv7:
+        raise AssertionError(f"profiler saw {n} device rows, {conv7} of "
+                             "kernel C")
+    top = sorted(rows.items(), key=lambda kv: -kv[1])[:5]
+    return {"total_ms": sum(rows.values()), "kernels": n,
+            "conv7_ms": conv7_us / 1e3, "conv7_launches": conv7,
+            "top": top, "tf32": torch.backends.cudnn.allow_tf32}
 
 
 # ---------------------------------------------------------------------------
@@ -849,11 +1055,21 @@ def main() -> int:
             card_ms=res["B_card_ms"],
             library="none (GEMM only: torch.matmul f32, TF32 off, "
                     "pre-gathered frames)"),
-        row("conv7 (kernel C, 3 layers)", "conv7.cu",
+        row("conv7 (kernel C, 3 layers: fused_convstack, f32 NCHW in and "
+            "out)", "conv7.cu",
             tpu + "convstack_pallas.py:91", n["conv7_layer"], res["C"],
             res["C_ms"], res["C_plain_ms"], res_bound("C"),
             res["C_library_ms"], card_ms=res["C_card_ms"],
-            library="F.conv2d bf16 channels-last x 3, no leaky ReLU"),
+            library=f"F.conv2d bf16 x 3, 8 channels, cudnn.benchmark, "
+                    f"{res['C_library_fmt']}, no leaky ReLU",
+            library_fmts_ms=res["C_library_fmts"],
+            library_old_ms=res["C_library_old_ms"],
+            mid_card_ms=res["C_mid_card_ms"],
+            mid_bound_ms=res["C_mid_bound_ms"],
+            t901_card_ms=res["C_901_card_ms"],
+            t901_bound_ms=res["C_901_bound_ms"],
+            model_stage_ms=srv["split"]["total_ms"],
+            model_stage_conv7_ms=srv["split"]["conv7_ms"]),
         row("window_copy (#5, six variants; ms summed)",
             "probe_window_copy.cu", "scripts/probe_dma_rate.py:57",
             m["window_copy"], 0.0, probe["window"]["ms"],

@@ -251,7 +251,7 @@ WRAPPERS = {   # wrapper, its plain version's name in its module, arguments
         lambda: (_stream16(), _starts(), _bank(), _meta(36), "gemm")),
     "conv7": (CS, "conv7_layer", "conv7_layer_plain", lambda: (
         _meta(1, 8, 8, 8, dtype=torch.bfloat16),
-        _meta(8, 8, 7, 7, dtype=torch.bfloat16), _meta(8))),
+        _meta(7, 4, 2, 8, 8, dtype=torch.bfloat16), _meta(8))),
     "window_copy": (PC, "window_copy", "window_copy_plain", lambda: (
         _stream16(), _starts(), "dma3", 8, 528)),
     "transpose_pad": (PC, "transpose_pad", "transpose_pad_plain",

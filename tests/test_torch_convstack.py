@@ -71,11 +71,9 @@ def _port_stack(x_nhwc, layers, dtype):
     x = torch.from_numpy(x_nhwc).permute(0, 3, 1, 2)
     if dtype == torch.bfloat16:
         y = CS.fused_convstack(x, _port_layers(layers))
-        return y.permute(0, 2, 3, 1).numpy()
-    h = CS.to_channels_last(x, torch.float32)
-    for w, b in _port_layers(layers):
-        h = CS.conv7_layer_plain(h, w, b)
-    return h.numpy()
+    else:
+        y = CS.fused_convstack_plain(x, _port_layers(layers), torch.float32)
+    return y.permute(0, 2, 3, 1).numpy()
 
 
 @pytest.mark.parametrize("cin,T", [(5, 23), (8, 17), (5, 9)])
@@ -121,14 +119,17 @@ def test_fold_matches_jax_fold(rng):
 
 
 def test_pack_weight_layout(rng):
-    """Kernel C's weight operand: [tap = dh*7 + dt][co][ci], tap 49 and
-    the padded input channels zero."""
+    """Kernel C's weight operand: [dh][tap pair p][half][co][ci] =
+    w[co, ci, dh, 2p + half], tap dt = 7 and the padded input channels
+    zero; unpack_weight inverts it."""
     w = torch.from_numpy(rng.standard_normal((8, 5, 7, 7)).astype(np.float32))
     wp = CS.pack_weight(w)
-    assert wp.shape == (50, 8, 8)
+    assert wp.shape == CS.PACKED == (7, 4, 2, 8, 8)
     for dh, dt, co, ci in [(0, 0, 0, 0), (3, 4, 7, 2), (6, 6, 5, 4)]:
-        assert wp[dh * 7 + dt, co, ci] == w[co, ci, dh, dt]
-    assert not wp[49].any() and not wp[:, :, 5:].any()
+        assert wp[dh, dt // 2, dt % 2, co, ci] == w[co, ci, dh, dt]
+    assert not wp[:, 3, 1].any() and not wp[..., 5:].any()
+    assert torch.equal(CS.unpack_weight(wp)[:, :5], w)
+    assert not CS.unpack_weight(wp)[:, 5:].any()
 
 
 def _stack_module(**kw):

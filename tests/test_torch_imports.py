@@ -63,7 +63,7 @@ def test_port_serves_without_jax(tmp_path):
         from audio_key_estimation_torch.scripts import (
             experiment_transpose_kernel, harness, probe_cqt_kernel_stages,
             probe_dma_rate, probe_pallas_overhead, probe_pallas_primitives,
-            profile_cqt_frontend)
+            profile_convstack, profile_cqt_frontend)
         cfg = Config(**{TINY!r})
         wav = {str(tmp_path / "a.wav")!r}
         t = np.arange(8000 * 2) / 8000
@@ -203,7 +203,8 @@ def test_kernel_wrappers_never_fall_back_off_cpu():
     x = torch.empty(1, 8, 8, 8, dtype=torch.bfloat16, device="meta")
     with pytest.raises(ValueError):
         convstack_cuda.conv7_layer(
-            x, torch.empty(8, 8, 7, 7, dtype=torch.bfloat16, device="meta"),
+            x, torch.empty(convstack_cuda.PACKED, dtype=torch.bfloat16,
+                           device="meta"),
             torch.empty(8, device="meta"))
     assert cqt_cuda.cascade_pad.launches == 0
     assert convstack_cuda.conv7_layer.launches == 0
