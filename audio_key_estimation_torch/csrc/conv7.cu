@@ -34,35 +34,32 @@
 // writes 32 B of float32). Before this design each mma read its whole A
 // fragment from shared memory (25 k-steps per 16 positions, no reuse):
 // the shared-memory load rate, not bytes or FLOPs, set its time. Here a
-// fragment serves up to 7 output rows: 7 ldmatrix per row and 16 positions
-// instead of 25 (kRows = 8). Measured (PERF.md, PR 5), the mma alone run
-// near the bf16 peak; the fragment loads and their latency are what is
-// left beside the bytes.
+// fragment serves up to 7 output rows: 14 ldmatrix matrices per input row
+// and 16 positions, the fewest this register layout allows, against 100.
+// Measured (PERF.md, PR 5), the mma alone and the ldmatrix alone each run
+// near their peak, but together they do not overlap; that, and the bytes
+// at about 2.3 TB/s, set the time.
 //
 // Blocks are persistent (kBlocksPerSm per SM): a block loads its weights
 // once, then walks tiles of kRows rows x kTileT positions of one clip
 // (time fastest); while tile k computes, tile k + 1's halo ((kRows + 6) x
-// (kTileT + 6) positions) is in flight with cp.async: 16 bytes per
-// position into a two-buffer ring for a channels-last input; for a float32
-// NCHW input each channel's time runs by 16-byte copies (4-byte ones where
-// a run wraps) into a two-buffer float ring, converted to the bf16 halo
-// once it has landed (a bf16 NCHW input, which cp.async cannot copy by 2
-// bytes, is loaded and converted by plain loads). The
-// circular wrap on both axes is index arithmetic on that copy, so no
-// padded activation is ever written. A ragged last time tile and an H that
-// is not a multiple of kRows are masked on the store. An NCHW output goes
-// through a tile in shared memory, so each (row, channel) run of the tile
-// is stored by consecutive lanes (from the fragments, a warp's store
-// covers eight 32-byte pieces of four channel rows). The TPU's 2.04x
-// block-Toeplitz weight packing was an MXU-filling artefact and is not
-// used.
+// (kTileT + 6) positions) is in flight: by cp.async, 16 bytes per
+// position, into a two-buffer ring for a channels-last input; by plain
+// loads, rounded to bf16, for an NCHW one (copying it by cp.async into a
+// float ring measured no faster). The circular wrap on both axes is index
+// arithmetic on that copy, so no padded activation is ever written. A
+// ragged last time tile and an H that is not a multiple of kRows are
+// masked on the store. An NCHW output goes through a tile in shared
+// memory, so each (row, channel) run of the tile is stored by consecutive
+// lanes (from the fragments, a warp's store covers eight 32-byte pieces
+// of four channel rows). The TPU's 2.04x block-Toeplitz weight packing was
+// an MXU-filling artefact and is not used.
 //
 // The AKT_CONV7_* macros are knobs for scripts/profile_convstack.py's
 // variant sweep; the defaults are the shipped design. AKT_CONV7_PART cuts
 // the kernel for a time split: 1 stages and stores but runs no ldmatrix
 // or mma, 2 runs them and stores but stages nothing, 3 runs only the
-// mma and stores, 4 only the ldmatrix (x4 each) and stores (wrong
-// results).
+// mma and stores, 4 only the ldmatrix and stores (wrong results).
 #include <algorithm>
 #include <type_traits>
 
@@ -80,24 +77,6 @@
 #ifndef AKT_CONV7_PART
 #define AKT_CONV7_PART 0
 #endif
-#ifndef AKT_CONV7_K8  // 0: tap 6 paired with a zero tap in an m16n8k16
-#define AKT_CONV7_K8 1
-#endif
-#ifndef AKT_CONV7_PREFETCH  // 0: each step loads its own fragment
-#define AKT_CONV7_PREFETCH 1
-#endif
-#ifndef AKT_CONV7_F32_ASYNC  // float32 NCHW input: 0 plain loads, 1 cp.async
-#define AKT_CONV7_F32_ASYNC 2   // by 4 bytes, 2 by 16 bytes where aligned
-#endif
-#ifndef AKT_CONV7_WGMMA  // 1: wgmma m64n8k16, A from registers, B in smem
-#define AKT_CONV7_WGMMA 0
-#endif
-#ifndef AKT_CONV7_STAGES  // tiles staged ahead + 1
-#define AKT_CONV7_STAGES 2
-#endif
-#ifndef AKT_CONV7_OUT_STAGED  // NCHW output: 0 stored from the fragments,
-#define AKT_CONV7_OUT_STAGED 1  // 1 by the block from a shared tile, 2 by
-#endif                          // each warp from its part of that tile
 
 namespace {
 
@@ -105,34 +84,19 @@ constexpr int kRows = AKT_CONV7_ROWS;          // output pitch rows per warp
 constexpr int kWarps = AKT_CONV7_WARPS;        // 16 time positions each
 constexpr int kBlocksPerSm = AKT_CONV7_BLOCKS_PER_SM;
 constexpr int kPart = AKT_CONV7_PART;
-constexpr bool kK8 = AKT_CONV7_K8;
-constexpr bool kPrefetch = AKT_CONV7_PREFETCH;
-constexpr int kF32Async = AKT_CONV7_F32_ASYNC;
-constexpr bool kWgmma = AKT_CONV7_WGMMA;
-constexpr int kStages = AKT_CONV7_STAGES;
-constexpr int kOutStaged = AKT_CONV7_OUT_STAGED;
-constexpr int kWeightBytes = 7 * 4 * 2 * 8 * 8 * 2;
 constexpr int kTileT = 16 * kWarps;
-// an NCHW output tile in shared memory, [row][co][t] float, rows of
-// kOutT = kTileT + 4 floats: the fragment writes of a warp (channels 2q,
-// positions g) then fall in 32 distinct banks
-constexpr int kOutT = kTileT + 4;
 constexpr int kHaloH = kRows + 6;
 constexpr int kHaloT = kTileT + 6;
 constexpr int kHalo = kHaloH * kHaloT;          // positions (uint4) per buffer
 constexpr int kThreads = 32 * kWarps;
 constexpr int kSteps = 4 * kHaloH;              // (input row, tap pair)
-// float ring: one row of a channel per halo row, 16-byte aligned, with
-// room for the up to 3 floats before the row that a 16-byte copy brings
-constexpr int kRowF = (kHaloT + 6) / 4 * 4;
-constexpr int kRingF = kHaloH * kRowF;          // floats per channel
+// an NCHW output tile in shared memory, [row][co][t] float, rows of
+// kOutT = kTileT + 4 floats: the fragment writes of a warp (channels 2q,
+// positions g) then fall in 32 distinct banks
+constexpr int kOutT = kTileT + 4;
 
 // input / output layouts (bindings.cpp conv7 maps the operator's arguments)
 enum Conv7Io { kNhwc8Bf16 = 0, kNchwF32 = 1, kNchwBf16 = 2 };
-
-// a float32 NCHW input lands in a float ring and is converted in place
-template <int IN>
-constexpr bool kFloatRing = IN == kNchwF32 && kF32Async > 0;
 
 struct Conv7Args {
   const void* x;
@@ -156,18 +120,12 @@ __device__ __forceinline__ void cp_async16(uint32_t dst, const void* src) {
                "l"(src));
 }
 
-__device__ __forceinline__ void cp_async4(uint32_t dst, const void* src) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(dst),
-               "l"(src));
-}
-
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::);
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ void cp_async_wait_one() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
@@ -203,52 +161,9 @@ __device__ __forceinline__ void mma_bf16_16816(float (&d)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// wgmma: D (64 x 8, f32) += A (64 x 16 bf16, each warp's 16 rows in
-// registers, the m16n8k16 A layout) x B (16 x 8 bf16, K-major in shared
-// memory, no swizzle: two 8 x 16-byte core matrices, the k halves, 128 B
-// apart).
-__device__ __forceinline__ uint64_t wgmma_desc(uint32_t smem_addr) {
-  return static_cast<uint64_t>((smem_addr & 0x3FFFF) >> 4) |
-         static_cast<uint64_t>(128 >> 4) << 16 |   // leading (K) byte offset
-         static_cast<uint64_t>(256 >> 4) << 32;    // stride (N) byte offset
-}
-
-__device__ __forceinline__ void wgmma_m64n8k16(float (&d)[4],
-                                               const uint32_t (&a)[4],
-                                               uint64_t desc) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %9, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, %8, p, 1, 1, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc), "r"(1));
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-__device__ __forceinline__ void fence_operand(float (&d)[4]) {
-  asm volatile("" : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])::"memory");
-}
-
 __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint4 pack_bf16x8(const float (&v)[8]) {
-  return make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
-                    pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
 }
 
 struct Tile {
@@ -261,53 +176,13 @@ __device__ __forceinline__ Tile tile_at(const Conv7Args& a, int tile) {
   return {rest / a.n_rows, (rest % a.n_rows) * kRows, tt * kTileT};
 }
 
-// A float32 NCHW tile copies each (channel, halo row) run of kHaloT
-// floats with 16-byte cp.async where the run does not wrap in time: the
-// run starts `phase` floats into its ring row, phase = its first float's
-// index mod 4 (the input is 16-byte aligned), so the copies are aligned on
-// both sides (the first and last may bring up to 3 floats beside the run,
-// inside the input's 16-byte granules).
-__device__ __forceinline__ bool runs_aligned(const Conv7Args& a,
-                                            const Tile& tl) {
-  return kF32Async == 2 && tl.t0 >= 3 && tl.t0 + kHaloT - 3 <= a.T &&
-         a.H >= kHaloH;
-}
-
-// index in x of the run of (channel c, halo row r) of an aligned tile
-__device__ __forceinline__ long long run_start(const Conv7Args& a,
-                                               const Tile& tl, int c,
-                                               int r) {
-  int h = tl.h0 - 3 + r;
-  h += h < 0 ? a.H : h >= a.H ? -a.H : 0;
-  return (static_cast<long long>(tl.b) * a.cin + c) * a.H * a.T +
-         static_cast<long long>(h) * a.T + tl.t0 - 3;
-}
-
-// Stage one tile's halo: position (r, j) is the input at pitch row
-// h0 - 3 + r and time t0 - 3 + j, both wrapped. Into the bf16 halo buf as
-// 8 channels (channels-last by cp.async, bf16 NCHW by plain loads), or,
-// for a float32 ring, channel c of position (r, j) into
-// ring[(c * kHaloH + r) * kRowF + phase + j] (phase 0 for a tile whose
-// runs are not aligned copies).
+// Stage one tile's halo into buf: position (r, j) holds the input at pitch
+// row h0 - 3 + r and time t0 - 3 + j, both wrapped, as 8 bf16 channels.
 template <int IN>
 __device__ __forceinline__ void stage(const Conv7Args& a, int tile,
-                                      uint4* buf, float* ring) {
+                                      uint4* buf) {
   const Tile tl = tile_at(a, tile);
   const long long plane = static_cast<long long>(a.H) * a.T;
-  if constexpr (kFloatRing<IN>) {
-    if (runs_aligned(a, tl)) {
-      constexpr int kChunks = kRowF / 4;
-      const float* x = static_cast<const float*>(a.x);
-      for (int i = threadIdx.x; i < a.cin * kHaloH * kChunks; i += kThreads) {
-        const int run = i / kChunks, k = i - run * kChunks;
-        const long long g0 = run_start(a, tl, run / kHaloH, run % kHaloH);
-        const int phase = static_cast<int>(g0 & 3);
-        if (4 * k < phase + kHaloT)
-          cp_async16(smem_u32(ring + run * kRowF + 4 * k), x + g0 - phase + 4 * k);
-      }
-      return;
-    }
-  }
   // at most one wrap per axis when both cover a halo (the usual case):
   // a compare and an add instead of two integer divisions per position
   const bool once = a.H >= kHaloH && a.T >= kHaloT;
@@ -337,39 +212,13 @@ __device__ __forceinline__ void stage(const Conv7Args& a, int tile,
                                            __nv_bfloat16>::type;
       const In* src = static_cast<const In*>(a.x) +
                       (static_cast<long long>(tl.b) * a.cin * plane + at);
-      if constexpr (kFloatRing<IN>) {
-        const int row = i / kHaloT;
-        for (int c = 0; c < a.cin; ++c)
-          cp_async4(smem_u32(ring + (c * kHaloH + row) * kRowF + i -
-                             row * kHaloT),
-                    src + c * plane);
-      } else {
-        float v[8];
+      float v[8];
 #pragma unroll
-        for (int c = 0; c < 8; ++c)
-          v[c] = c < a.cin ? akt_to_float(src[c * plane]) : 0.f;
-        buf[i] = pack_bf16x8(v);
-      }
+      for (int c = 0; c < 8; ++c)
+        v[c] = c < a.cin ? akt_to_float(src[c * plane]) : 0.f;
+      buf[i] = make_uint4(pack_bf16x2(v[0], v[1]), pack_bf16x2(v[2], v[3]),
+                          pack_bf16x2(v[4], v[5]), pack_bf16x2(v[6], v[7]));
     }
-  }
-}
-
-// A landed float ring -> the bf16 halo, channels cin..7 zero.
-__device__ __forceinline__ void convert(const Conv7Args& a, int tile,
-                                        const float* ring, uint4* buf) {
-  const Tile tl = tile_at(a, tile);
-  const bool aligned = runs_aligned(a, tl);
-  for (int i = threadIdx.x; i < kHalo; i += kThreads) {
-    const int r = i / kHaloT, j = i - r * kHaloT;
-    float v[8];
-#pragma unroll
-    for (int c = 0; c < 8; ++c) {
-      const int phase =
-          aligned && c < a.cin ? static_cast<int>(run_start(a, tl, c, r) & 3)
-                               : 0;
-      v[c] = c < a.cin ? ring[(c * kHaloH + r) * kRowF + phase + j] : 0.f;
-    }
-    buf[i] = pack_bf16x8(v);
   }
 }
 
@@ -377,16 +226,58 @@ __device__ __forceinline__ float leaky(float v) {
   return v >= 0.f ? v : 0.01f * v;
 }
 
+// One warp's kRows x 16 outputs of a staged tile: bias, leaky ReLU, bf16;
+// stored channels-last, or for an NCHW output into the shared tile outsm
+// as the bf16-rounded float.
 template <int OUT>
-constexpr bool kOutTile = OUT != kNhwc8Bf16 && kOutStaged > 0;
-
-// A warp's kRows x 16 outputs: bias, leaky ReLU, bf16, stored (an NCHW
-// output into the shared tile outsm, as the bf16-rounded float).
-template <int OUT>
-__device__ __forceinline__ void store(const Conv7Args& a, const Tile& tl,
-                                      int tw, const float (&acc)[kRows][4],
-                                      float b0, float b1, float* outsm) {
+__device__ __forceinline__ void compute(const Conv7Args& a, int tile,
+                                        const uint4* buf,
+                                        const uint32_t (&bw)[7][4][2],
+                                        float b0, float b1, float* outsm) {
+  const Tile tl = tile_at(a, tile);
   const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  const int tw = tl.t0 + 16 * warp;
+  if (tw >= a.T) return;  // warp-uniform: a ragged last tile
+  // ldmatrix row addresses: lanes 8i..8i+7 give matrix i's rows, i.e.
+  // positions 16 warp + (lane & 7) + 8 (i & 1), plus 1 for i >= 2 (the
+  // pair's second tap); tap 6's fragment is matrices 0 and 1 alone.
+  const int mi = lane >> 3;
+  const int pos = 16 * warp + (lane & 7) + 8 * (mi & 1);
+  const uint32_t base = smem_u32(buf);
+  const uint32_t addr_pair = base + (pos + (mi >> 1)) * 16;
+  const uint32_t addr_last = base + pos * 16;
+  const auto load = [&](uint32_t (&f)[4], int s) {
+    const int r = s >> 2, p = s & 3;
+    const uint32_t at = (p < 3 ? addr_pair : addr_last) +
+                        (r * kHaloT + 2 * p) * 16;
+    if (kPart == 3)
+      f[0] = f[1] = f[2] = f[3] = 0x3f803f80u;  // bf16 1.0 pairs
+    else if (p == 3)
+      ldmatrix_x2(f, at);
+    else
+      ldmatrix_x4(f, at);
+  };
+  float acc[kRows][4];
+#pragma unroll
+  for (int h = 0; h < kRows; ++h)
+    acc[h][0] = acc[h][1] = acc[h][2] = acc[h][3] = 0.f;
+  uint32_t f[2][4];
+  if (kPart != 1) load(f[0], 0);
+#pragma unroll
+  for (int s = 0; s < (kPart == 1 ? 0 : kSteps); ++s) {
+    const int r = s >> 2, p = s & 3;
+    if (s + 1 < kSteps) load(f[(s + 1) & 1], s + 1);
+#pragma unroll
+    for (int h = 0; h < kRows; ++h) {
+      const int dh = r - h;
+      if (dh < 0 || dh >= 7 || kPart == 4) continue;
+      if (p == 3)
+        mma_bf16_1688(acc[h], f[s & 1], bw[dh][3][0]);
+      else
+        mma_bf16_16816(acc[h], f[s & 1], bw[dh][p][0], bw[dh][p][1]);
+    }
+  }
   const int g = lane >> 2, q = lane & 3;
   const long long plane = static_cast<long long>(a.H) * a.T;
 #pragma unroll
@@ -399,44 +290,22 @@ __device__ __forceinline__ void store(const Conv7Args& a, const Tile& tl,
       if (t >= a.T) continue;
       __nv_bfloat162 o = __floats2bfloat162_rn(leaky(acc[h][2 * half] + b0),
                                                leaky(acc[h][2 * half + 1] + b1));
-      const long long at = static_cast<long long>(row) * a.T + t;
-      if constexpr (kOutTile<OUT>) {
+      if constexpr (OUT == kNhwc8Bf16) {
+        static_cast<uint32_t*>(a.y)[(tl.b * plane +
+                                     static_cast<long long>(row) * a.T + t) *
+                                        4 +
+                                    q] = *reinterpret_cast<uint32_t*>(&o);
+      } else {
         float* y = outsm + (h * 8 + 2 * q) * kOutT + t - tl.t0;
         y[0] = __bfloat162float(o.x);
         y[kOutT] = __bfloat162float(o.y);
-      } else if constexpr (OUT == kNhwc8Bf16) {
-        static_cast<uint32_t*>(a.y)[(tl.b * plane + at) * 4 + q] =
-            *reinterpret_cast<uint32_t*>(&o);
-      } else if constexpr (OUT == kNchwF32) {
-        float* y = static_cast<float*>(a.y) + (tl.b * 8LL + 2 * q) * plane + at;
-        y[0] = __bfloat162float(o.x);
-        y[plane] = __bfloat162float(o.y);
-      } else {
-        __nv_bfloat16* y = static_cast<__nv_bfloat16*>(a.y) +
-                           (tl.b * 8LL + 2 * q) * plane + at;
-        y[0] = o.x;
-        y[plane] = o.y;
       }
-    }
-  }
-  if constexpr (kOutTile<OUT> && kOutStaged == 2) {
-    using Out = typename std::conditional<OUT == kNchwF32, float,
-                                          __nv_bfloat16>::type;
-    __syncwarp();
-    const int t0 = tw - tl.t0;  // this warp's 16 positions of the tile
-    for (int i = lane; i < kRows * 8 * 16; i += 32) {
-      const int run = i >> 4, t = tw + (i & 15);  // run = h * 8 + co
-      const int row = tl.h0 + run / 8;
-      if (t >= a.T || row >= a.H) continue;
-      static_cast<Out*>(a.y)[(tl.b * 8LL + run % 8) * plane +
-                             static_cast<long long>(row) * a.T + t] =
-          akt_from_float<Out>(outsm[run * kOutT + t0 + (i & 15)]);
     }
   }
 }
 
 // The shared NCHW output tile to y: each (row, channel) run of up to
-// kTileT positions by consecutive lanes, coalesced.
+// kTileT positions by consecutive lanes.
 template <int OUT>
 __device__ __forceinline__ void flush(const Conv7Args& a, int tile,
                                       const float* outsm) {
@@ -455,187 +324,62 @@ __device__ __forceinline__ void flush(const Conv7Args& a, int tile,
   }
 }
 
-// One warp's kRows x 16 outputs of a staged tile, stored. bw: the B
-// fragments in registers (mma.sync); wsm: the packed weights in shared
-// memory (wgmma, each warpgroup of 4 warps 64 positions).
+// Shared memory: two halo buffers, then an NCHW output's tile.
 template <int OUT>
-__device__ __forceinline__ void compute(const Conv7Args& a, int tile,
-                                        const uint4* buf,
-                                        const uint32_t (&bw)[7][4][2],
-                                        const uint4* wsm, float b0,
-                                        float b1, float* outsm) {
-  const Tile tl = tile_at(a, tile);
-  const int lane = threadIdx.x & 31;
-  const int warp = threadIdx.x >> 5;
-  const int tw = tl.t0 + 16 * warp;
-  // a ragged last tile: skip a warp past T, or with wgmma a warpgroup
-  if ((kWgmma ? tl.t0 + 64 * (warp >> 2) : tw) >= a.T) return;
-  // ldmatrix row addresses: lanes 8i..8i+7 give matrix i's rows, i.e.
-  // positions 16 warp + (lane & 7) + 8 (i & 1), plus 1 for i >= 2 (the
-  // pair's second tap); tap 6's fragment is matrices 0 and 1 alone (with
-  // wgmma, which has no k8, matrices 2 and 3 repeat them for a zero tap).
-  const int mi = lane >> 3;
-  const int pos = 16 * warp + (lane & 7) + 8 * (mi & 1);
-  const uint32_t base = smem_u32(buf);
-  const uint32_t addr_pair = base + (pos + (mi >> 1)) * 16;
-  const uint32_t addr_last = base + pos * 16;
-  constexpr bool k8 = kK8 && !kWgmma;
-  const auto load = [&](uint32_t (&f)[4], int s) {
-    const int r = s >> 2, p = s & 3;
-    const uint32_t at = (p < 3 ? addr_pair : addr_last) +
-                        (r * kHaloT + 2 * p) * 16;
-    if (kPart == 3) {
-      f[0] = f[1] = f[2] = f[3] = 0x3f803f80u;  // bf16 1.0 pairs
-    } else if (k8 && p == 3 && kPart != 4) {
-      ldmatrix_x2(f, at);
-    } else {
-      ldmatrix_x4(f, at);
-    }
-  };
-  float acc[kRows][4];
-#pragma unroll
-  for (int h = 0; h < kRows; ++h)
-    acc[h][0] = acc[h][1] = acc[h][2] = acc[h][3] = 0.f;
-  // wgmma: four fragment buffers, loaded two steps ahead, two groups of
-  // wgmma in flight
-  uint32_t f[kWgmma ? 4 : 2][4];
-  if (kPart != 1) load(f[0], 0);
-  if constexpr (kWgmma) {
-    const uint64_t desc0 = wgmma_desc(smem_u32(wsm));
-    if (kPart != 1) load(f[1], 1);
-#pragma unroll
-    for (int s = 0; s < (kPart == 1 ? 0 : kSteps); ++s) {
-      const int r = s >> 2, p = s & 3;
-      wgmma_wait<1>();  // step s - 2 has read the buffer loaded next
-      if (s + 2 < kSteps) load(f[(s + 2) & 3], s + 2);
-#pragma unroll
-      for (int h = 0; h < kRows; ++h) fence_operand(acc[h]);
-      wgmma_fence();
-#pragma unroll
-      for (int h = 0; h < kRows; ++h) {
-        const int dh = r - h;
-        if (dh < 0 || dh >= 7 || kPart == 4) continue;
-        // tile (dh, p) of the packed weights, 256 bytes each
-        wgmma_m64n8k16(acc[h], f[s & 3], desc0 + (dh * 4 + p) * (256 >> 4));
-      }
-      wgmma_commit();
-    }
-    wgmma_wait<0>();
-#pragma unroll
-    for (int h = 0; h < kRows; ++h) fence_operand(acc[h]);
-  } else {
-#pragma unroll
-    for (int s = 0; s < (kPart == 1 ? 0 : kSteps); ++s) {
-      const int r = s >> 2, p = s & 3;
-      uint32_t(&cur)[4] = f[kPrefetch ? s & 1 : 0];
-      if (!kPrefetch && s > 0) load(cur, s);
-      if (kPrefetch && s + 1 < kSteps) load(f[(s + 1) & 1], s + 1);
-#pragma unroll
-      for (int h = 0; h < kRows; ++h) {
-        const int dh = r - h;
-        if (dh < 0 || dh >= 7 || kPart == 4) continue;
-        if (k8 && p == 3)
-          mma_bf16_1688(acc[h], cur, bw[dh][p][0]);
-        else
-          mma_bf16_16816(acc[h], cur, bw[dh][p][0], bw[dh][p][1]);
-      }
-    }
-  }
-  store<OUT>(a, tl, tw, acc, b0, b1, outsm);
-}
-
-// Shared memory: kStages bf16 halo buffers, or for a float ring one bf16
-// halo and kStages float buffers of cin channels; then an NCHW output's
-// tile; with wgmma the packed weights last.
-template <int IN>
-__host__ __device__ int stage_bytes(int cin) {
-  return kFloatRing<IN> ? kHalo * 16 + kStages * cin * kRingF * 4
-                        : kStages * kHalo * 16;
-}
-
-template <int IN, int OUT>
-__host__ __device__ int smem_bytes(int cin) {
-  return stage_bytes<IN>(cin) + (kOutTile<OUT> ? kRows * 8 * kOutT * 4 : 0) +
-         (kWgmma ? kWeightBytes : 0);
-}
+constexpr int kSmemBytes =
+    2 * kHalo * 16 + (OUT == kNhwc8Bf16 ? 0 : kRows * 8 * kOutT * 4);
 
 template <int IN, int OUT>
 __global__ void __launch_bounds__(kThreads, kBlocksPerSm > 0 ? kBlocksPerSm
                                                              : 2)
     conv7_kernel(const Conv7Args a) {
-  extern __shared__ uint4 smem[];
-  float* ring = reinterpret_cast<float*>(smem + kHalo);
-  const auto slot = [&](int k) {  // where tile k of this block is staged
-    return kFloatRing<IN> ? smem : smem + (k % kStages) * kHalo;
-  };
-  const auto fslot = [&](int k) {
-    return ring + (k % kStages) * a.cin * kRingF;
-  };
+  extern __shared__ uint4 smem[];  // two halo buffers, the output tile
+  float* outsm = reinterpret_cast<float*>(smem + 2 * kHalo);
   int tile = blockIdx.x;
   if (tile >= a.n_tiles) return;
-  for (int k = 0; k < kStages - 1; ++k) {  // the first tiles' halos
-    const int t = tile + k * gridDim.x;
-    if (kPart < 2 && t < a.n_tiles) stage<IN>(a, t, slot(k), fslot(k));
-    cp_async_commit();
-  }
+  if (kPart < 2) stage<IN>(a, tile, smem);
+  cp_async_commit();
   const int lane = threadIdx.x & 31;
   uint32_t bw[7][4][2];
-  uint4* wsm = smem + (smem_bytes<IN, OUT>(a.cin) - kWeightBytes) / 16;
-  float* outsm = reinterpret_cast<float*>(smem + stage_bytes<IN>(a.cin) / 16);
-  if constexpr (kWgmma) {
-    for (int i = threadIdx.x; i < kWeightBytes / 16; i += kThreads)
-      wsm[i] = __ldg(reinterpret_cast<const uint4*>(a.w) + i);
-    // generic-proxy stores, read by wgmma through the async proxy
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-  } else {
 #pragma unroll
-    for (int dh = 0; dh < 7; ++dh)
+  for (int dh = 0; dh < 7; ++dh)
 #pragma unroll
-      for (int p = 0; p < 4; ++p)
+    for (int p = 0; p < 4; ++p)
 #pragma unroll
-        for (int half = 0; half < 2; ++half)
-          bw[dh][p][half] = (kK8 && p == 3 && half)
-              ? 0u
-              : __ldg(a.w + ((dh * 4 + p) * 2 + half) * 32 + lane);
-  }
+      for (int half = 0; half < 2; ++half)  // tap 7 (p 3, half 1) is zero
+        bw[dh][p][half] = p == 3 && half ? 0u
+            : __ldg(a.w + ((dh * 4 + p) * 2 + half) * 32 + lane);
   const float b0 = __ldg(a.bias + 2 * (lane & 3));
   const float b1 = __ldg(a.bias + 2 * (lane & 3) + 1);
   for (int k = 0; tile < a.n_tiles; ++k, tile += gridDim.x) {
-    const int next = tile + (kStages - 1) * gridDim.x;
+    const int next = tile + gridDim.x;
     if (kPart < 2 && next < a.n_tiles)
-      stage<IN>(a, next, slot(k + kStages - 1), fslot(k + kStages - 1));
+      stage<IN>(a, next, smem + ((k + 1) & 1) * kHalo);
     cp_async_commit();
-    cp_async_wait<kStages - 1>();  // this tile's copies have landed
+    cp_async_wait_one();  // this tile's copies (the one before the last)
     __syncthreads();
-    if constexpr (kFloatRing<IN>) {
-      if (kPart < 2) convert(a, tile, fslot(k), smem);
-      __syncthreads();
-    }
-    compute<OUT>(a, tile, slot(k), bw, wsm, b0, b1, outsm);
-    __syncthreads();  // the buffers are refilled on the next tiles
-    if constexpr (kOutTile<OUT> && kOutStaged == 1) flush<OUT>(a, tile, outsm);
+    compute<OUT>(a, tile, smem + (k & 1) * kHalo, bw, b0, b1, outsm);
+    __syncthreads();  // the buffer is refilled two tiles on
+    if constexpr (OUT != kNhwc8Bf16) flush<OUT>(a, tile, outsm);
   }
 }
 
 template <int IN, int OUT>
 int launch(const Conv7Args& a, cudaStream_t stream) {
   const auto kernel = conv7_kernel<IN, OUT>;
-  const int smem = smem_bytes<IN, OUT>(a.cin);
   cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes<OUT>);
   if (err != cudaSuccess) return static_cast<int>(err);
   int grid = a.n_tiles;
   if (kBlocksPerSm > 0) {
-    int dev = 0, sms = 0, fit = 0;
+    int dev = 0, sms = 0;
     if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
-                                      dev)) != cudaSuccess ||
-        (err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-             &fit, kernel, kThreads, smem)) != cudaSuccess)
+                                      dev)) != cudaSuccess)
       return static_cast<int>(err);
-    grid = std::min(grid, std::max(1, std::min(fit, kBlocksPerSm)) * sms);
+    grid = std::min(grid, kBlocksPerSm * sms);
   }
-  kernel<<<grid, kThreads, smem, stream>>>(a);
+  kernel<<<grid, kThreads, kSmemBytes<OUT>, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -659,7 +403,7 @@ int io_mode(int nchw, int dtype) {
 // x: (B, H, T, 8) bf16 channels-last (in_nchw 0, cin 8) or (B, cin, H, T)
 // float32 / bf16 (in_nchw 1); y: (B, H, T, 8) bf16 (out_nchw 0) or
 // (B, 8, H, T) float32 / bf16; w_packed 7168 bytes, bias 8 float32.
-// Every pointer 16-byte aligned for a channels-last tensor.
+// A channels-last x 16-byte aligned.
 extern "C" int akt_conv7(const void* x, int in_nchw, int in_dtype, int cin,
                          const void* w_packed, const float* bias, void* y,
                          int out_nchw, int out_dtype, int batch, int H, int T,

@@ -138,7 +138,7 @@ def conv7_layer(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
     _, ci, H, T = dims if nchw_in else (dims[0], dims[3], *dims[1:3])
     if (not x.is_contiguous()
             or x.dtype not in (STACK_DTYPES if nchw_in else (torch.bfloat16,))
-            or x.data_ptr() % 16 or (not nchw_in and ci != C)
+            or (not nchw_in and (ci != C or x.data_ptr() % 16))
             or not supported_geometry(H, T, [ci])
             or nchw_out not in (None, *STACK_DTYPES)
             or wp.dtype != torch.bfloat16 or tuple(wp.shape) != PACKED

@@ -23,15 +23,12 @@ stderr:
             holds its library;
   layer     each of the three layers alone at T = 601, against its bytes;
   variant   csrc/conv7.cu rebuilt by nvcc with AKT_CONV7_* overrides
-            (rows per warp, warps per block, persistent blocks per SM,
-            fragment prefetch, tap 6 alone or paired with a zero tap, the
-            float32 input by cp.async or plain loads, the NCHW output
-            through a shared tile or from the fragments, staging depth,
-            wgmma in place of mma.sync, and the time split:
-            staging and stores only, ldmatrix + mma and stores only, mma
-            and stores only, ldmatrix and stores only) into its own library, its plain C launcher
-            called through ctypes: the stack and each layer, each full
-            variant's output checked against the shipped kernel's.
+            (R rows per warp, W warps per block, P persistent blocks per
+            SM, and the time split: staging and stores only, ldmatrix +
+            mma and stores only, mma and stores only, ldmatrix and stores
+            only) into its own library, its plain C launcher called
+            through ctypes: the stack and each layer, each full variant's
+            output checked against the shipped kernel's.
 
 The last line of stdout is one JSON object of every number. Exits
 non-zero without CUDA.
@@ -51,23 +48,14 @@ HBM_BYTES_PER_S = 3.35e12
 # (name, knobs): the shipped design first (csrc/conv7.cu's defaults)
 VARIANTS = [
     ("shipped R8 W8 P2", {}),
-    ("no fragment prefetch", {"PREFETCH": 0}),
-    ("tap 6 paired with a zero tap (k16)", {"K8": 0}),
-    ("f32 input by plain loads", {"F32_ASYNC": 0}),
-    ("f32 input by 4-byte cp.async", {"F32_ASYNC": 1}),
-    ("NCHW output stored from the fragments", {"OUT_STAGED": 0}),
-    ("NCHW output stored by each warp", {"OUT_STAGED": 2}),
     ("not persistent", {"BLOCKS_PER_SM": 0}),
     ("persistent 1/SM", {"BLOCKS_PER_SM": 1}),
     ("R4 W8 P2", {"ROWS": 4}),
     ("R4 W8 P3", {"ROWS": 4, "BLOCKS_PER_SM": 3}),
     ("R8 W4 P2", {"WARPS": 4}),
     ("R8 W4 P4", {"WARPS": 4, "BLOCKS_PER_SM": 4}),
-    ("R16 W4 P1", {"ROWS": 16, "WARPS": 4, "BLOCKS_PER_SM": 1}),
     ("R12 W8 P2", {"ROWS": 12}),
-    ("3 staging buffers", {"STAGES": 3}),
-    ("wgmma m64n8k16", {"WGMMA": 1}),
-    ("wgmma m64n8k16, 3 blocks/SM", {"WGMMA": 1, "BLOCKS_PER_SM": 3}),
+    ("R16 W4 P1", {"ROWS": 16, "WARPS": 4, "BLOCKS_PER_SM": 1}),
     ("split: staging + stores", {"PART": 1}),
     ("split: ldmatrix + mma + stores", {"PART": 2}),
     ("split: mma + stores", {"PART": 3}),
