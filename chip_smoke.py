@@ -388,12 +388,11 @@ def conv_layers(g: np.random.Generator, device, cins=(5, 8, 8)) -> list:
     return layers
 
 
-def stack_bytes(B: int, H: int, T: int, cin: int, n: int,
-                item: int = 4) -> int:
-    """What fused_convstack must move: the NCHW input read once, each
-    bf16 channels-last intermediate written once and read once, the NCHW
-    output written once."""
-    return B * H * T * (cin * item + (n - 1) * 2 * 8 * 2 + 8 * item)
+def stack_bytes(B: int, H: int, T: int, cin: int, n: int) -> int:
+    """What fused_convstack must move: the float32 NCHW input read once,
+    each bf16 channels-last intermediate written once and read once, the
+    float32 NCHW output written once."""
+    return B * H * T * (cin * 4 + (n - 1) * 2 * 8 * 2 + 8 * 4)
 
 
 def check_conv_kernel(device) -> dict:
