@@ -53,37 +53,20 @@
 // memory, so each (row, channel) run of the tile is stored by consecutive
 // lanes (from the fragments, a warp's store covers eight 32-byte pieces
 // of four channel rows). The TPU's 2.04x block-Toeplitz weight packing was
-// an MXU-filling artefact and is not used.
-//
-// The AKT_CONV7_* macros are knobs for scripts/profile_convstack.py's
-// variant sweep; the defaults are the shipped design. AKT_CONV7_PART cuts
-// the kernel for a time split: 1 stages and stores but runs no ldmatrix
-// or mma, 2 runs them and stores but stages nothing, 3 runs only the
-// mma and stores, 4 only the ldmatrix and stores (wrong results).
+// an MXU-filling artefact and is not used. PERF.md records the other row
+// counts, warp counts and block counts measured against this design.
 #include <algorithm>
+#include <atomic>
 #include <type_traits>
 
 #include "common.cuh"
 
-#ifndef AKT_CONV7_ROWS
-#define AKT_CONV7_ROWS 8
-#endif
-#ifndef AKT_CONV7_WARPS
-#define AKT_CONV7_WARPS 8
-#endif
-#ifndef AKT_CONV7_BLOCKS_PER_SM  // 0: one block per tile, not persistent
-#define AKT_CONV7_BLOCKS_PER_SM 2
-#endif
-#ifndef AKT_CONV7_PART
-#define AKT_CONV7_PART 0
-#endif
-
 namespace {
 
-constexpr int kRows = AKT_CONV7_ROWS;          // output pitch rows per warp
-constexpr int kWarps = AKT_CONV7_WARPS;        // 16 time positions each
-constexpr int kBlocksPerSm = AKT_CONV7_BLOCKS_PER_SM;
-constexpr int kPart = AKT_CONV7_PART;
+constexpr int kRows = 8;         // output pitch rows per warp
+constexpr int kWarps = 8;        // 16 time positions each
+constexpr int kBlocksPerSm = 2;  // persistent blocks
+constexpr int kMaxDevices = 64;
 constexpr int kTileT = 16 * kWarps;
 constexpr int kHaloH = kRows + 6;
 constexpr int kHaloT = kTileT + 6;
@@ -251,9 +234,7 @@ __device__ __forceinline__ void compute(const Conv7Args& a, int tile,
     const int r = s >> 2, p = s & 3;
     const uint32_t at = (p < 3 ? addr_pair : addr_last) +
                         (r * kHaloT + 2 * p) * 16;
-    if (kPart == 3)
-      f[0] = f[1] = f[2] = f[3] = 0x3f803f80u;  // bf16 1.0 pairs
-    else if (p == 3)
+    if (p == 3)
       ldmatrix_x2(f, at);
     else
       ldmatrix_x4(f, at);
@@ -263,15 +244,15 @@ __device__ __forceinline__ void compute(const Conv7Args& a, int tile,
   for (int h = 0; h < kRows; ++h)
     acc[h][0] = acc[h][1] = acc[h][2] = acc[h][3] = 0.f;
   uint32_t f[2][4];
-  if (kPart != 1) load(f[0], 0);
+  load(f[0], 0);
 #pragma unroll
-  for (int s = 0; s < (kPart == 1 ? 0 : kSteps); ++s) {
+  for (int s = 0; s < kSteps; ++s) {
     const int r = s >> 2, p = s & 3;
     if (s + 1 < kSteps) load(f[(s + 1) & 1], s + 1);
 #pragma unroll
     for (int h = 0; h < kRows; ++h) {
       const int dh = r - h;
-      if (dh < 0 || dh >= 7 || kPart == 4) continue;
+      if (dh < 0 || dh >= 7) continue;
       if (p == 3)
         mma_bf16_1688(acc[h], f[s & 1], bw[dh][3][0]);
       else
@@ -330,14 +311,13 @@ constexpr int kSmemBytes =
     2 * kHalo * 16 + (OUT == kNhwc8Bf16 ? 0 : kRows * 8 * kOutT * 4);
 
 template <int IN, int OUT>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm > 0 ? kBlocksPerSm
-                                                             : 2)
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
     conv7_kernel(const Conv7Args a) {
   extern __shared__ uint4 smem[];  // two halo buffers, the output tile
   float* outsm = reinterpret_cast<float*>(smem + 2 * kHalo);
   int tile = blockIdx.x;
   if (tile >= a.n_tiles) return;
-  if (kPart < 2) stage<IN>(a, tile, smem);
+  stage<IN>(a, tile, smem);
   cp_async_commit();
   const int lane = threadIdx.x & 31;
   uint32_t bw[7][4][2];
@@ -353,8 +333,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm > 0 ? kBlocksPerSm
   const float b1 = __ldg(a.bias + 2 * (lane & 3) + 1);
   for (int k = 0; tile < a.n_tiles; ++k, tile += gridDim.x) {
     const int next = tile + gridDim.x;
-    if (kPart < 2 && next < a.n_tiles)
-      stage<IN>(a, next, smem + ((k + 1) & 1) * kHalo);
+    if (next < a.n_tiles) stage<IN>(a, next, smem + ((k + 1) & 1) * kHalo);
     cp_async_commit();
     cp_async_wait_one();  // this tile's copies (the one before the last)
     __syncthreads();
@@ -367,19 +346,26 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm > 0 ? kBlocksPerSm
 template <int IN, int OUT>
 int launch(const Conv7Args& a, cudaStream_t stream) {
   const auto kernel = conv7_kernel<IN, OUT>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, kSmemBytes<OUT>);
+  // set up once per device: the shared-memory attribute (per context) and
+  // the persistent grid, kBlocksPerSm blocks per SM; 0 until then
+  static std::atomic<int> blocks[kMaxDevices];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return static_cast<int>(err);
-  int grid = a.n_tiles;
-  if (kBlocksPerSm > 0) {
-    int dev = 0, sms = 0;
-    if ((err = cudaGetDevice(&dev)) != cudaSuccess ||
+  if (dev >= kMaxDevices) return AKT_BAD_ARGS;
+  int grid = blocks[dev].load(std::memory_order_relaxed);
+  if (grid == 0) {
+    int sms = 0;
+    if ((err = cudaFuncSetAttribute(
+             kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+             kSmemBytes<OUT>)) != cudaSuccess ||
         (err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount,
                                       dev)) != cudaSuccess)
       return static_cast<int>(err);
-    grid = std::min(grid, kBlocksPerSm * sms);
+    grid = kBlocksPerSm * sms;
+    blocks[dev].store(grid, std::memory_order_relaxed);
   }
-  kernel<<<grid, kThreads, kSmemBytes<OUT>, stream>>>(a);
+  kernel<<<std::min(grid, a.n_tiles), kThreads, kSmemBytes<OUT>, stream>>>(a);
   return static_cast<int>(cudaGetLastError());
 }
 

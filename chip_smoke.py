@@ -16,7 +16,7 @@ non-zero):
              one launch over all 8 octaves; kernel C per layer and the
              served function fused_convstack, 5->8->8->8 from float32
              NCHW to float32 NCHW at (16, 288, 601), also at T = 901 and
-             its middle layer alone) and time both with CUDA events
+             each layer alone) and time both with CUDA events
              (warm-up, median of 20; kernels A, B, C also replayed from a
              CUDA graph, the card's time without the host's), beside the
              library call that computes the
@@ -388,6 +388,15 @@ def conv_layers(g: np.random.Generator, device, cins=(5, 8, 8)) -> list:
     return layers
 
 
+def layer_bytes(B: int, H: int, T: int, cin: int, n: int) -> list[int]:
+    """What each of the n >= 2 layers of fused_convstack must move: the
+    first reads the float32 NCHW input and writes bf16 channels-last, the
+    middle ones read and write bf16 channels-last, the last writes the
+    float32 NCHW output."""
+    per_pos = [cin * 4 + 16] + [16 + 16] * (n - 2) + [16 + 8 * 4]
+    return [B * H * T * p for p in per_pos]
+
+
 def stack_bytes(B: int, H: int, T: int, cin: int, n: int) -> int:
     """What fused_convstack must move: the float32 NCHW input read once,
     each bf16 channels-last intermediate written once and read once, the
@@ -401,7 +410,7 @@ def check_conv_kernel(device) -> dict:
     the same inputs (NCHW float32 in, channels-last bf16 between, NCHW
     float32 out), the stack against the plain stack; the served function
     fused_convstack timed from its float32 NCHW input to its float32
-    output, beside the middle layer alone, the 180 s bucket (T = 901) and
+    output, beside each layer alone, the 180 s bucket (T = 901) and
     cuDNN's bf16 conv2d."""
     g = np.random.default_rng(1)
     B, H, T = BATCH, 288, 601
@@ -439,12 +448,17 @@ def check_conv_kernel(device) -> dict:
     flops = sum(2 * B * H * T * 8 * w.shape[1] * 49 for w, _ in layers)
     put_bound(res, "C", bound(stack_bytes(B, H, T, 5, n), flops,
                               BF16_FLOPS))
-    # the middle layer alone: channels-last bf16 in and out
-    h1 = plain_inputs[1]
-    res["C_mid_card_ms"] = graph_ms(lambda: CS.conv7_layer(h1, wp[1],
-                                                           bias[1]))
-    put_bound(res, "C_mid", bound(2 * B * H * T * 8 * 2,
-                                  2 * B * H * T * 8 * 8 * 49, BF16_FLOPS))
+    # each layer alone: NCHW float32 in (5 channels), channels-last bf16
+    # between, NCHW float32 out
+    for i, (key, nbytes) in enumerate(zip(("C_l1", "C_mid", "C_l3"),
+                                          layer_bytes(B, H, T, 5, n))):
+        kw = dict(nchw_in=i == 0, nchw_out=torch.float32 if i == n - 1
+                  else None)
+        res[key + "_card_ms"] = graph_ms(
+            lambda i=i, kw=kw: CS.conv7_layer(plain_inputs[i], wp[i],
+                                              bias[i], **kw))
+        put_bound(res, key, bound(nbytes, 2 * B * H * T * 8
+                                  * layers[i][0].shape[1] * 49, BF16_FLOPS))
     # the served 180 s bucket
     x901 = torch.tensor(g.standard_normal((B, 5, H, 901)),
                         dtype=torch.float32, device=device)
@@ -467,10 +481,14 @@ def check_conv_kernel(device) -> dict:
         f"{res['C_library_fmt']}: {res['C_library_ms']:.4f} ms (the old "
         f"yardstick, 5 channels, benchmark off: "
         f"{res['C_library_old_ms']:.4f} ms)")
-    log(f"[3 kernels] C middle layer alone (bf16 channels-last in and out): "
-        f"{res['C_mid_card_ms']:.4f} ms on the card, bound "
-        f"{res['C_mid_bound_ms']:.4f} ms ({res['C_mid_bound_by']}, "
-        f"{res['C_mid_bound_ms'] / res['C_mid_card_ms']:.1%}); stack at "
+    log("[3 kernels] C each layer alone on the card: " + "; ".join(
+        f"{name} {res[key + '_card_ms']:.4f} ms, bound "
+        f"{res[key + '_bound_ms']:.4f} ms ({res[key + '_bound_by']}, "
+        f"{res[key + '_bound_ms'] / res[key + '_card_ms']:.1%})"
+        for name, key in (("layer 1 (f32 NCHW in)", "C_l1"),
+                          ("middle (bf16 channels-last)", "C_mid"),
+                          ("layer 3 (f32 NCHW out)", "C_l3")))
+        + f"; stack at "
         f"T = 901: {res['C_901_card_ms']:.4f} ms on the card, bound "
         f"{res['C_901_bound_ms']:.4f} ms "
         f"({res['C_901_bound_ms'] / res['C_901_card_ms']:.1%})")
@@ -1063,8 +1081,12 @@ def main() -> int:
                     f"{res['C_library_fmt']}, no leaky ReLU",
             library_fmts_ms=res["C_library_fmts"],
             library_old_ms=res["C_library_old_ms"],
+            l1_card_ms=res["C_l1_card_ms"],
+            l1_bound_ms=res["C_l1_bound_ms"],
             mid_card_ms=res["C_mid_card_ms"],
             mid_bound_ms=res["C_mid_bound_ms"],
+            l3_card_ms=res["C_l3_card_ms"],
+            l3_bound_ms=res["C_l3_bound_ms"],
             t901_card_ms=res["C_901_card_ms"],
             t901_bound_ms=res["C_901_bound_ms"],
             model_stage_ms=srv["split"]["total_ms"],

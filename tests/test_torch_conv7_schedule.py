@@ -14,8 +14,6 @@ fused Pallas stack in interpret mode at tests/test_convstack_pallas.py's
 bars (max rel < 5e-2, mean rel < 1e-2).
 """
 
-import re
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -23,17 +21,11 @@ import torch
 
 from audio_key_estimation_tpu.ops import convstack_pallas as CP
 
-from audio_key_estimation_torch.ops import _build
 from audio_key_estimation_torch.ops import convstack_cuda as CS
 
-
-def _define(name: str) -> int:
-    text = (_build.CSRC / "conv7.cu").read_text()
-    return int(re.search(rf"#define {name} (\d+)", text).group(1))
-
-
-ROWS = _define("AKT_CONV7_ROWS")          # output pitch rows per warp
-WARPS = _define("AKT_CONV7_WARPS")        # 16 time positions each
+# csrc/conv7.cu's kRows (output pitch rows per warp) and kWarps (16 time
+# positions each)
+ROWS, WARPS = 8, 8
 HALO_H, HALO_T = ROWS + 6, 16 * WARPS + 6
 
 
@@ -228,6 +220,31 @@ def test_stack_packs_its_weights_once(rng, monkeypatch):
                         lambda *a: calls.append(len(a[0])) or orig(*a))
     CS.fused_convstack(torch.zeros(1, 5, 4, 4), layers)
     assert calls == [3]
+
+
+@pytest.mark.parametrize("cin,n", [(5, 2), (5, 3), (8, 4)])
+def test_chip_smoke_bytes_are_the_layers_tensors(rng, monkeypatch, cin, n):
+    """chip_smoke.py's byte bounds of kernel C: each layer's is the bytes
+    of the tensors that layer of fused_convstack reads and writes (float32
+    NCHW in, bf16 channels-last between, float32 NCHW out), and they sum
+    to the stack's."""
+    import chip_smoke
+    layers = [(torch.from_numpy(rng.standard_normal((8, ci, 7, 7))
+                                .astype(np.float32)),
+               torch.zeros(8)) for ci in (cin,) + (8,) * (n - 1)]
+    moved = []
+    orig = CS.conv7_layer
+
+    def layer(x, *args):
+        y = orig(x, *args)
+        moved.append(x.numel() * x.element_size()
+                     + y.numel() * y.element_size())
+        return y
+    monkeypatch.setattr(CS, "conv7_layer", layer)
+    B, H, T = 2, 5, 9
+    CS.fused_convstack(torch.zeros(B, cin, H, T), layers)
+    assert moved == chip_smoke.layer_bytes(B, H, T, cin, n)
+    assert sum(moved) == chip_smoke.stack_bytes(B, H, T, cin, n)
 
 
 def _jax_stack(x_nchw, layers, chunk):

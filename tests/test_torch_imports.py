@@ -63,7 +63,7 @@ def test_port_serves_without_jax(tmp_path):
         from audio_key_estimation_torch.scripts import (
             experiment_transpose_kernel, harness, probe_cqt_kernel_stages,
             probe_dma_rate, probe_pallas_overhead, probe_pallas_primitives,
-            profile_convstack, profile_cqt_frontend)
+            profile_cqt_frontend)
         cfg = Config(**{TINY!r})
         wav = {str(tmp_path / "a.wav")!r}
         t = np.arange(8000 * 2) / 8000

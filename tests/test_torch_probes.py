@@ -34,7 +34,6 @@ from audio_key_estimation_torch.scripts import (experiment_transpose_kernel,
                                                 probe_dma_rate,
                                                 probe_pallas_overhead,
                                                 probe_pallas_primitives,
-                                                profile_convstack,
                                                 profile_cqt_frontend)
 
 
@@ -325,8 +324,7 @@ def test_probe_wrappers_never_fall_back_off_cpu():
 @pytest.mark.parametrize("entry", [
     probe_pallas_primitives.main, probe_pallas_overhead.main,
     probe_dma_rate.main, probe_cqt_kernel_stages.main,
-    experiment_transpose_kernel.main, profile_cqt_frontend.main,
-    profile_convstack.main])
+    experiment_transpose_kernel.main, profile_cqt_frontend.main])
 def test_entry_points_refuse_without_cuda(entry):
     if torch.cuda.is_available():
         pytest.skip("this check needs a machine without CUDA")
