@@ -1,14 +1,15 @@
 """Prediction CLI — the serving face of the port.
 
     python -m audio_key_estimation_torch.cli.predict song.wav ... \\
-        --torch_ckpt best_model.pt [--device cpu] [config flags]
+        --torch_ckpt best_model.pt [--device cpu] [--local_windows] \\
+        [config flags]
 
 Prints, per input file, the estimated key (and genre when the model has a
-genre head). Architecture flags must match the checkpoint's training run.
-Serves on the CUDA card; on a machine without one it raises unless
-`--device cpu` is given.
-Loading a JAX-package run directory (orbax, --version) and the local
-timeline are later port items (ROADMAP.md port queue items 6 and 2).
+genre head), or the per-window key timeline with --local_windows.
+Architecture flags must match the checkpoint's training run. Serves on
+the CUDA card; on a machine without one it raises unless `--device cpu`
+is given. Loading a JAX-package run directory (orbax, --version) is a
+later port item (ROADMAP.md port queue item 6).
 """
 
 from __future__ import annotations
@@ -32,15 +33,26 @@ def main(argv=None):
     parser.add_argument("--device", type=str, default="cuda",
                         help="serve on this torch device; without CUDA "
                              "only --device cpu runs")
+    parser.add_argument("--local_windows", action="store_true",
+                        help="per-window key timeline (local mode)")
     args = parser.parse_args(argv)
     cfg = config_from_args(args)
     est = KeyEstimator.from_torch_checkpoint(args.torch_ckpt, cfg,
                                              device=args.device)
     results = {}
-    for path, pred in zip(args.files, est.predict_files(args.files)):
-        genre = f"  genre={pred.genre}" if pred.genre else ""
-        print(f"{path}: {pred.key}  (conf {pred.confidence:.3f}){genre}")
-        results[path] = pred
+    if args.local_windows:
+        for path, pred in zip(args.files,
+                              est.predict_files_local(args.files)):
+            print(path)
+            for w in pred.windows:
+                print(f"  {w.start:7.2f}-{w.end:7.2f}s  {w.key:24s} "
+                      f"(conf {w.confidence:.3f})")
+            results[path] = pred
+    else:
+        for path, pred in zip(args.files, est.predict_files(args.files)):
+            genre = f"  genre={pred.genre}" if pred.genre else ""
+            print(f"{path}: {pred.key}  (conf {pred.confidence:.3f}){genre}")
+            results[path] = pred
     return results
 
 

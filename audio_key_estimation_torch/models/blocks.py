@@ -1,11 +1,13 @@
-"""PyTorch building blocks for PitchClassNet (the default variant).
+"""PyTorch building blocks for PitchClassNet.
 
 Parameter names follow the reference's torch modules, so a reference
 `best_model.pt` loads with `load_state_dict` (keys per the JAX package's
 `models/torch_port.py:6-11`): convs and BatchNorms hold `weight`, `bias`,
 `running_mean`, `running_var`; an equivariant conv nests its conv as
-`.conv2d`; a ConvStack is the reference's `layer` Sequential (conv, BN,
-LeakyReLU, ...). BatchNorm keeps no `num_batches_tracked`.
+`.conv2d` and the p2pc_conv pool as `.conv`; a ConvStack is the
+reference's `layer` Sequential (conv, BN, LeakyReLU, ..., or a stem and
+ResBlocks from index 3, or one DenseBlock at index 0). BatchNorm keeps no
+`num_batches_tracked`.
 
 Initialization matches torch's Conv2d default (and the JAX package's
 `_init_conv`): weights and biases U(-1/sqrt(fan_in), 1/sqrt(fan_in)),
@@ -22,6 +24,7 @@ from torch import nn
 
 from ..ops import convstack_cuda as CS
 from ..ops import equivariant as eqv
+from ..ops import pooling
 from ..ops.convstack_cuda import LEAKY_SLOPE
 
 
@@ -59,16 +62,18 @@ class CircularConv(ConvParams):
 
 
 class ZeroPadConv(ConvParams):
-    """Plain Conv2d with zero padding (the genre head)."""
+    """Plain Conv2d with zero padding (dense-layer convs, the genre head)."""
 
-    def __init__(self, in_ch, out_ch, kernel, generator, padding=(0, 0)):
+    def __init__(self, in_ch, out_ch, kernel, generator, padding=(0, 0),
+                 bias=True):
         kh, kw = kernel
         super().__init__((out_ch, in_ch, kh, kw), in_ch * kh * kw, out_ch,
-                         generator)
+                         generator, bias=bias)
         self.padding = tuple(padding)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+        return F.conv2d(x, self.weight.to(x.dtype),
+                        None if self.bias is None else self.bias.to(x.dtype),
                         padding=self.padding)
 
 
@@ -128,43 +133,143 @@ def leaky_relu(x):
     return F.leaky_relu(x, LEAKY_SLOPE)
 
 
-class ConvStack(nn.Module):
-    """Stack of (conv, BatchNorm, LeakyReLU) x conv_layers.
+class ResBlock(nn.Module):
+    """2-conv residual block, circular padding (models.py:402-427)."""
 
-    equivariant=True gives PitchClass2PitchClass (models.py:168-203),
-    False gives Pitch2Pitch (models.py:205-243). `layer` mirrors the
-    reference's Sequential indices. With fused_serving, an eval-mode
-    Pitch2Pitch stack at kernel C's geometry runs through
-    ops/convstack_cuda.py (the JAX package's `_use_fused` gate, without
-    its TPU lane constraints).
+    def __init__(self, kernel_size, num_filters, equivariant, generator):
+        super().__init__()
+        k, f = kernel_size, num_filters
+        if equivariant:
+            self.conv1 = EquivariantConv(f, 2 * f, k, generator,
+                                         same_depth_padding=True)
+            self.conv2 = EquivariantConv(2 * f, f, k, generator,
+                                         same_depth_padding=True)
+        else:
+            self.conv1 = CircularConv(f, 2 * f, (k, k), generator)
+            self.conv2 = CircularConv(2 * f, f, (k, k), generator)
+        self.b1 = BatchNorm(2 * f)
+        self.b2 = BatchNorm(f)
+
+    def forward(self, x):
+        r = leaky_relu(self.b1(self.conv1(x)))
+        return leaky_relu(x + self.b2(self.conv2(r)))
+
+
+class DenseLayer(nn.Module):
+    """DenseNet bottleneck layer (models.py:456-582): norm1 -> LeakyReLU
+    -> 1x1 conv -> norm2 -> ReLU -> kxk conv. Non-equivariant convs are
+    bias-free with zero padding; equivariant convs carry biases."""
+
+    def __init__(self, in_ch, growth, bn_size, kernel_size, equivariant,
+                 generator, drop_rate=0.0):
+        super().__init__()
+        mid, k = bn_size * growth, kernel_size
+        self.norm1 = BatchNorm(in_ch)
+        if equivariant:
+            self.conv1 = EquivariantConv(in_ch, mid, 1, generator)
+        else:
+            self.conv1 = ZeroPadConv(in_ch, mid, (1, 1), generator,
+                                     bias=False)
+        self.norm2 = BatchNorm(mid)
+        if equivariant:
+            self.conv2 = EquivariantConv(mid, growth, k, generator,
+                                         same_depth_padding=True)
+        else:
+            self.conv2 = ZeroPadConv(mid, growth, (k, k), generator,
+                                     padding=(k // 2, k // 2), bias=False)
+        self.drop_rate = drop_rate
+
+    def forward(self, x):
+        y = self.conv1(leaky_relu(self.norm1(x)))
+        y = self.conv2(F.relu(self.norm2(y)))
+        # F.dropout on the new features (models.py:516-517), training only
+        return F.dropout(y, self.drop_rate, self.training)
+
+
+class DenseBlock(nn.Module):
+    """Densely-connected block (models.py:584-648): layer i sees the
+    block input and every earlier layer's features; multi_path gives
+    layer i kernel 2i + 3."""
+
+    def __init__(self, num_layers, in_ch, bn_size, growth, kernel_size,
+                 equivariant, generator, multi_path=False, drop_rate=0.0):
+        super().__init__()
+        for i in range(num_layers):
+            k = 2 * i + 3 if multi_path else kernel_size
+            self.add_module(f"denselayer{i + 1}", DenseLayer(
+                in_ch + i * growth, growth, bn_size, k, equivariant,
+                generator, drop_rate))
+
+    def forward(self, x):
+        features = [x]
+        for layer in self.children():
+            features.append(layer(torch.cat(features, dim=1)))
+        return torch.cat(features, dim=1)
+
+
+class ConvStack(nn.Module):
+    """Stack of (conv, BatchNorm, LeakyReLU) x conv_layers, or of
+    residual or dense blocks (models.py:168-243).
+
+    equivariant=True gives PitchClass2PitchClass, False gives
+    Pitch2Pitch. `layer` mirrors the reference's Sequential indices: conv
+    i at 3i (BN 3i + 1); with resblock a conv/BN stem at 0, 1 and the
+    ResBlocks from 3; with denseblock one DenseBlock at 0. With
+    fused_serving, an eval-mode plain Pitch2Pitch stack at kernel C's
+    geometry runs through ops/convstack_cuda.py (the JAX package's
+    `_use_fused` gate, without its TPU lane constraints).
     """
 
     def __init__(self, in_ch, out_ch, kernel_size, conv_layers, equivariant,
-                 generator, fused_serving=False):
+                 generator, fused_serving=False, resblock=False,
+                 denseblock=False, drop_rate=0.0):
         super().__init__()
-        mods = []
-        for i in range(conv_layers):
-            cin = in_ch if i == 0 else out_ch
+
+        def conv(cin, cout):
             if equivariant:
-                conv = EquivariantConv(cin, out_ch, kernel_size, generator,
+                return EquivariantConv(cin, cout, kernel_size, generator,
                                        same_depth_padding=True)
-            else:
-                conv = CircularConv(cin, out_ch, (kernel_size, kernel_size),
-                                    generator)
-            mods += [conv, BatchNorm(out_ch), nn.LeakyReLU(LEAKY_SLOPE)]
+            return CircularConv(cin, cout, (kernel_size, kernel_size),
+                                generator)
+
+        self.out_channels = out_ch
+        if resblock:
+            mods = [conv(in_ch, out_ch), BatchNorm(out_ch),
+                    nn.LeakyReLU(LEAKY_SLOPE)]
+            mods += [ResBlock(kernel_size, out_ch, equivariant, generator)
+                     for _ in range(conv_layers)]
+        elif denseblock:
+            mods = [DenseBlock(conv_layers, in_ch, max(in_ch // 2, 1),
+                               out_ch, kernel_size, equivariant, generator,
+                               drop_rate=drop_rate)]
+            self.out_channels = in_ch + conv_layers * out_ch
+        else:
+            mods = []
+            for i in range(conv_layers):
+                mods += [conv(in_ch if i == 0 else out_ch, out_ch),
+                         BatchNorm(out_ch), nn.LeakyReLU(LEAKY_SLOPE)]
         self.layer = nn.ModuleList(mods)
         self.cins = [in_ch] + [out_ch] * (conv_layers - 1)
         self.out_ch = out_ch
         self.kernel_size = kernel_size
         self.equivariant = equivariant
+        self.plain = not (resblock or denseblock)
         self.fused_serving = fused_serving
 
+    @property
+    def fusable(self) -> bool:
+        """Kernel C takes this stack's layers: plain (no res/dense
+        blocks, non-equivariant), kernel 7, 8 outputs, <= 8 channels in,
+        fused_serving on. Each eval forward at H, T >= 3 then launches it
+        once per layer."""
+        return (self.fused_serving and self.plain and not self.equivariant
+                and self.kernel_size == CS.KERNEL and self.out_ch == CS.C
+                and all(1 <= ci <= CS.C for ci in self.cins))
+
     def use_fused(self, x: torch.Tensor) -> bool:
-        """Eval-only dispatch to kernel C: plain (non-equivariant),
-        kernel-7, 8-output stacks with <= 8 channels, T >= 3 and H >= 3."""
-        return (self.fused_serving and not self.training
-                and not self.equivariant and self.kernel_size == CS.KERNEL
-                and self.out_ch == CS.C
+        """Eval-only dispatch to kernel C: a fusable stack at T >= 3 and
+        H >= 3."""
+        return (self.fusable and not self.training
                 and CS.supported_geometry(x.shape[2], x.shape[3], self.cins))
 
     def folded_layers(self):
@@ -180,3 +285,19 @@ class ConvStack(nn.Module):
         for m in self.layer:
             x = m(x)
         return x
+
+
+class OctaveConvPool(nn.Module):
+    """Learned octave folding, flag --p2pc_conv (models.py:108-133): a
+    conv dilated by 12 on the pitch axis, BatchNorm, LeakyReLU."""
+
+    def __init__(self, in_ch, pitches_in, generator):
+        super().__init__()
+        ksize = -(-pitches_in // 12)
+        self.conv = ConvParams((in_ch, in_ch, ksize, 1), ksize * in_ch, in_ch,
+                               generator)
+        self.bn = BatchNorm(in_ch)
+
+    def forward(self, x):
+        y = pooling.octave_dilated_conv(x, self.conv.weight, self.conv.bias)
+        return leaky_relu(self.bn(y))

@@ -7,8 +7,9 @@ OIHW; the (3, I, O) third-upsample matrix -> ConvTranspose2d (I, O, 3, 1)).
 tests/test_torch_model.py pins the two together exactly.
 
 `load_state_dict` fills a port model from such a dict or from a reference
-`best_model.pt`: the export writes an equivariant conv as `X.weight`, the
-reference (and the port's modules) as `X.conv2d.weight`; both load.
+`best_model.pt`: the export writes an equivariant conv as `X.weight` and
+the p2pc_conv pool's conv as `pool.weight`, the reference (and the port's
+modules) as `X.conv2d.weight` and `pool.conv.weight`; both load.
 """
 
 from __future__ import annotations
@@ -82,12 +83,14 @@ def load_state_dict(model: torch.nn.Module, state_dict: Mapping) -> None:
     """Load numpy arrays or tensors into `model`, strictly.
 
     Accepts either naming of an equivariant conv (`X.conv2d.weight` or
-    `X.weight`) and ignores `num_batches_tracked`; any other missing or
-    unused key raises KeyError.
+    `X.weight`) and of the p2pc_conv pool (`pool.conv.weight` or
+    `pool.weight`) and ignores `num_batches_tracked`; any other missing
+    or unused key raises KeyError.
     """
     used, sd, missing = set(), {}, []
     for key in model.state_dict():
-        cands = [key, key.replace(".conv2d.", ".")]
+        cands = [key, key.replace(".conv2d.", "."),
+                 key.replace(".conv.", ".")]
         found = next((c for c in cands if c in state_dict), None)
         if found is None:
             missing.append(key)

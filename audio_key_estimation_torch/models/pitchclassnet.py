@@ -1,13 +1,17 @@
 """PitchClassNet — transposition-equivariant key/tonic/genre network.
 
-PyTorch port of the JAX package's models/pitchclassnet.py, default
-variant: plain conv stacks, octave max-pool, `pool_semi` third->semitone
-pooling, `up_sixth` upsample and tile, key/tonic(/genre) heads, masked
-temporal mean. The public forward keeps the JAX package's input and
-outputs; inside, the network runs NCHW with torch's OIHW weights.
+PyTorch port of the JAX package's models/pitchclassnet.py: plain,
+residual or dense conv stacks; octave folding by max-pool or by the
+learned `p2pc_conv` pool; the third-of-semitone stream with `pool_semi`
+and `up_sixth`, or the semitone stream (`stay_sixth`, `only_semitones`);
+the pitch-class stream merged back by tile and concat or by the
+`pc2p_mem` memory add; key/tonic(/genre) heads; a masked temporal mean or
+max (global mode) or per-window outputs (local mode). The public forward
+keeps the JAX package's input and outputs; inside, the network runs NCHW
+with torch's OIHW weights.
 
-The other variants raise NotImplementedError naming their ROADMAP.md port
-queue item rather than silently running something else.
+`multi_scale` raises NotImplementedError naming its ROADMAP.md port queue
+item rather than silently running something else.
 """
 
 from __future__ import annotations
@@ -21,18 +25,12 @@ from ..ops import pooling
 from ..ops.frontend import torch_dtype
 from ..ops.masked_pool import actual_output_length, masked_time_reduce
 from .blocks import (LEAKY_SLOPE, BatchNorm, CircularConv, ConvStack,
-                     EquivariantConv, ThirdUpsample, ZeroPadConv, leaky_relu)
+                     EquivariantConv, OctaveConvPool, ThirdUpsample,
+                     ZeroPadConv, leaky_relu)
 from .schedule import head_in_channels, layer_channels
 
 # Config fields the port does not serve yet -> their ROADMAP.md item
 _LATER = {
-    "resblock": "port queue item 1 (remaining model variants)",
-    "denseblock": "port queue item 1 (remaining model variants)",
-    "p2pc_conv": "port queue item 1 (remaining model variants)",
-    "pc2p_mem": "port queue item 1 (remaining model variants)",
-    "stay_sixth": "port queue item 1 (remaining model variants)",
-    "only_semitones": "port queue item 1 (remaining model variants)",
-    "local": "port queue item 2 (local mode)",
     "multi_scale": "port queue item 8 (multi_scale)",
 }
 
@@ -53,41 +51,87 @@ class PitchClassNetLayer(nn.Module):
         c = cfg
         k = c.kernel_size
         self.cfg, self.layer_num = cfg, layer_num
-        if layer_num == 0:
-            self.pool_semi = CircularConv(1, 1, (3, 3), generator,
-                                          stride=(3, 1), circular_pad=(0, 1))
-            self.pool_semi_b = BatchNorm(1)
-            self.pc2pc = ConvStack(1, c.n_filters, k, c.conv_layers, True,
-                                   generator)
-            return
-        ch = layer_channels(layer_num, c.n_filters, c.conv_layers, False)
-        self.up_sixth = ThirdUpsample(ch.prev_pc, ch.prev_pc, generator)
-        self.up_sixth_b = BatchNorm(ch.prev_pc)
-        self.p2p = ConvStack(ch.prev_pc + ch.prev_p, ch.out_p, k,
-                             c.conv_layers, False, generator,
-                             fused_serving=c.fused_convstack)
-        self.pool_semi = CircularConv(ch.out_p, ch.out_p, (3, 3), generator,
-                                      stride=(3, 1), circular_pad=(0, 1))
-        self.pool_semi_b = BatchNorm(ch.out_p)
-        self.pc2pc = ConvStack(ch.out_p + ch.prev_pc, ch.out_pc, k,
-                               c.conv_layers, True, generator)
+        # semitone rows; the pitch stream's rows entering layers >= 1
+        self.semitone_rows = c.pitches if c.only_semitones else c.pitches // 3
+        self.p_rows = self.semitone_rows if c.stay_sixth else c.pitches
+        self.third_res = not (c.stay_sixth or c.only_semitones)
 
-    def forward(self, p, pc):
+        def stack(cin, cout, equivariant):
+            return ConvStack(cin, cout, k, c.conv_layers, equivariant,
+                             generator, fused_serving=c.fused_convstack,
+                             resblock=c.resblock, denseblock=c.denseblock,
+                             drop_rate=c.drop)
+
+        def semitone_pool(ch):
+            self.pool_semi = CircularConv(ch, ch, (3, 3), generator,
+                                          stride=(3, 1), circular_pad=(0, 1))
+            self.pool_semi_b = BatchNorm(ch)
+
+        if layer_num == 0:
+            if not c.only_semitones:
+                semitone_pool(1)
+            if c.p2pc_conv:
+                self.pool = OctaveConvPool(1, self.semitone_rows, generator)
+            self.pc2pc = stack(1, c.n_filters, True)
+            return
+        ch = layer_channels(layer_num, c.n_filters, c.conv_layers,
+                            c.denseblock)
+        if self.third_res:
+            self.up_sixth = ThirdUpsample(ch.prev_pc, ch.prev_pc, generator)
+            self.up_sixth_b = BatchNorm(ch.prev_pc)
+        self.p2p = stack(ch.prev_p if c.pc2p_mem else ch.prev_pc + ch.prev_p,
+                         ch.growth if c.denseblock else ch.out_p, False)
+        p_ch = self.p2p.out_channels
+        if self.third_res:
+            semitone_pool(p_ch)
+        if c.p2pc_conv:
+            self.pool = OctaveConvPool(p_ch, self.semitone_rows, generator)
+        self.pc2pc = stack(p_ch + ch.prev_pc,
+                           ch.growth if c.denseblock else ch.out_pc, True)
+
+    def _octave_pool(self, x):
+        if self.cfg.p2pc_conv:
+            return self.pool(x)
+        return pooling.octave_max_pool(x)
+
+    def _semitone_pool(self, x):
+        return leaky_relu(self.pool_semi_b(self.pool_semi(x)))
+
+    def forward(self, p, pc, local: bool = False):
+        c = self.cfg
         if self.layer_num == 0:
-            p_semi = leaky_relu(self.pool_semi_b(self.pool_semi(p)))
-            return p, self.pc2pc(pooling.octave_max_pool(p_semi))
-        p_sixth = leaky_relu(self.up_sixth_b(self.up_sixth(pc)))
-        p = torch.cat([p, eqv.pc_to_pitch_tile(p_sixth, self.cfg.pitches)],
-                      dim=1)
+            p_semi = p if c.only_semitones else self._semitone_pool(p)
+            if c.stay_sixth:
+                p = p_semi
+            return p, self.pc2pc(self._octave_pool(p_semi))
+        if self.third_res:
+            p_sixth = leaky_relu(self.up_sixth_b(self.up_sixth(pc)))
+            if c.pc2p_mem:
+                p = eqv.pc_to_pitch_memory_add(p, p_sixth)
+            else:
+                p = torch.cat([p, eqv.pc_to_pitch_tile(p_sixth, self.p_rows)],
+                              dim=1)
+        elif not c.pc2p_mem:
+            p = torch.cat([p, eqv.pc_to_pitch_tile(pc, self.p_rows)], dim=1)
+        # else the reference quirk (models.py:380-383, kept by the JAX
+        # package for checkpoint parity): with stay_sixth/only_semitones
+        # and pc2p_mem the pitch-class stream is never merged back
         p = self.p2p(p)
-        pc2 = leaky_relu(self.pool_semi_b(self.pool_semi(p)))
-        pc = self.pc2pc(torch.cat([pc, pooling.octave_max_pool(pc2)], dim=1))
-        pool = self.cfg.time_pool_size
-        return pooling.time_max_pool(p, pool), pooling.time_max_pool(pc, pool)
+        pc2 = self._semitone_pool(p) if self.third_res else p
+        pc = self.pc2pc(torch.cat([pc, self._octave_pool(pc2)], dim=1))
+        if not local:
+            pool = c.time_pool_size
+            p = pooling.time_max_pool(p, pool)
+            pc = pooling.time_max_pool(pc, pool)
+        return p, pc
 
 
 class Head(nn.Sequential):
-    """Classifier head (models.py:713-742). kind: 'key' | 'tonic' | 'genre'."""
+    """Classifier head (models.py:713-742). kind: 'key' | 'tonic' | 'genre'.
+
+    In local mode the key and tonic heads end in a sliding max over each
+    window of frames * loc_window_size input frames (models.py:721-722);
+    the genre head has none."""
 
     def __init__(self, cfg: Config, in_ch: int, kind: str, generator):
         k = cfg.kernel_size
@@ -105,6 +149,15 @@ class Head(nn.Sequential):
                 mods += [BatchNorm(out), nn.LeakyReLU(LEAKY_SLOPE)]
                 ch = out
         super().__init__(*mods)
+        self.window = (None if kind == "genre" else
+                       cfg.frames * cfg.loc_window_size
+                       - cfg.head_layers * (k - 1))
+
+    def forward(self, x, local: bool = False):
+        x = super().forward(x)
+        if local and self.window is not None:
+            x = pooling.sliding_time_max(x, self.window)
+        return x
 
 
 class PitchClassNet(nn.Module):
@@ -112,9 +165,13 @@ class PitchClassNet(nn.Module):
 
     forward(mel, seq_length) with
       mel        : (N, pitches, T, 1) log-CQT (the JAX package's layout)
-      seq_length : (N,) true frame counts, or None
-    returns (key (N, 12) sigmoid, tonic (N, 12) logits[, genre (N, 11)]).
-    Parameters are float32; `cfg.dtype` selects the compute dtype.
+      seq_length : (N,) true frame counts, or None (unused in local mode)
+    returns global mode (key (N, 12) sigmoid, tonic (N, 12) logits[,
+    genre (N, 11)]), or with `cfg.local` time-major per-window outputs
+    (key (N, T', 12) sigmoid, tonic (N, T', 12)[, genre (N, T_g, 11)]).
+    Local mode adds no parameters, so a global and a local model load one
+    state_dict. Parameters are float32; `cfg.dtype` selects the compute
+    dtype.
     """
 
     def __init__(self, cfg: Config, generator: torch.Generator | None = None):
@@ -127,7 +184,7 @@ class PitchClassNet(nn.Module):
             [PitchClassNetLayer(cfg, i, generator)
              for i in range(cfg.num_layers)])
         final_ch = head_in_channels(cfg.num_layers, cfg.n_filters,
-                                    cfg.conv_layers, False)
+                                    cfg.conv_layers, cfg.denseblock)
         self.tonic_classifier = Head(cfg, final_ch, "tonic", generator)
         self.key_classifier = Head(cfg, final_ch, "key", generator)
         self.genre_classifier = (Head(cfg, final_ch, "genre", generator)
@@ -135,23 +192,28 @@ class PitchClassNet(nn.Module):
 
     def forward(self, mel, seq_length=None):
         c = self.cfg
+        local = c.local
         p = mel.to(torch_dtype(c.dtype)).permute(0, 3, 1, 2)
         pc = None
         for layer in self.model:
-            p, pc = layer(p, pc)
-        lengths = None
-        if seq_length is not None:
-            lengths = torch.clamp(actual_output_length(
-                seq_length, num_layers=c.num_layers,
-                time_pool_size=c.time_pool_size, kernel_size=c.kernel_size,
-                head_layers=c.head_layers), min=1)
-
-        def reduce(head):
-            return masked_time_reduce(head(pc).float()[:, 0], lengths,
-                                      use_max=c.max_pool)
-
-        key = torch.sigmoid(reduce(self.key_classifier))
-        tonic = reduce(self.tonic_classifier)
+            p, pc = layer(p, pc, local)
+        heads = [self.key_classifier, self.tonic_classifier]
         if self.genre_classifier is not None:
-            return key, tonic, reduce(self.genre_classifier)
-        return key, tonic
+            heads.append(self.genre_classifier)
+        outs = [head(pc, local).float()[:, 0] for head in heads]
+        if local:
+            # time-major per-window outputs (models.py:806-810, intended
+            # semantics as in the JAX package)
+            outs = [o.transpose(1, 2) for o in outs]
+        else:
+            lengths = None
+            if seq_length is not None:
+                lengths = torch.clamp(actual_output_length(
+                    seq_length, num_layers=c.num_layers,
+                    time_pool_size=c.time_pool_size,
+                    kernel_size=c.kernel_size,
+                    head_layers=c.head_layers), min=1)
+            outs = [masked_time_reduce(o, lengths, use_max=c.max_pool)
+                    for o in outs]
+        outs[0] = torch.sigmoid(outs[0])
+        return tuple(outs)

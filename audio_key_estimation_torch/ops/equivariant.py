@@ -13,6 +13,7 @@ the JAX package's, including pads wider than the axis, which
   semitone_pool_conv   third-of-semitone -> semitone conv (pool_semi)
   third_upsample       semitone -> third transposed conv (up_sixth)
   pc_to_pitch_tile     tile pitch classes up to the pitch rows
+  pc_to_pitch_memory_add  add pitch classes onto the pitch rows (pc2p_mem)
 """
 
 from __future__ import annotations
@@ -86,3 +87,22 @@ def pc_to_pitch_tile(x: torch.Tensor, pitches: int) -> torch.Tensor:
     """Tile pitch-class rows up to `pitches` rows and crop (models.py:140-143)."""
     reps = -(-pitches // x.shape[2])
     return x.repeat(1, 1, reps, 1)[:, :, :pitches]
+
+
+def pc_to_pitch_memory_add(pitches: torch.Tensor,
+                           pitch_classes: torch.Tensor) -> torch.Tensor:
+    """Memory variant: add pc features onto pitch features (models.py:151-166).
+
+    Groups of C2 // C1 consecutive channels of `pitch_classes` are summed
+    down to the pitch stream's C1 channels, then added over row-major
+    blocks of the pitch axis: pitch row r gets pitch-class-stream row
+    r // (P // rows) (the reference's reshape semantics).
+
+    pitches       : (N, C1, P, T)
+    pitch_classes : (N, C2, rows, T) with C2 % C1 == 0 and P % rows == 0
+    """
+    n, c1, p, t = pitches.shape
+    c2, rows = pitch_classes.shape[1], pitch_classes.shape[2]
+    pc = pitch_classes.reshape(n, c1, c2 // c1, rows, t).sum(dim=2)
+    out = pitches.reshape(n, c1, rows, p // rows, t) + pc[:, :, :, None]
+    return out.reshape(n, c1, p, t)

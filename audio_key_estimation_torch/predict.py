@@ -1,11 +1,13 @@
 """Serving API: waveforms/files -> key, tonic, genre predictions.
 
-PyTorch port of the JAX package's predict.py (global mode): a
-`KeyEstimator` holds a PitchClassNet on an explicit device, batches audio
-through the CQT front-end and the network, and names the result. On a
-CUDA device the CQT runs through kernels A and B (`Config.use_pallas_cqt`
-"auto"/"on") and, with `Config.fused_convstack`, the layer-1 Pitch2Pitch
-stack through kernel C.
+PyTorch port of the JAX package's predict.py: a `KeyEstimator` holds a
+PitchClassNet on an explicit device, batches audio through the CQT
+front-end and the network, and names the result, one key per clip
+(`predict_files`) or one per local window (`predict_files_local`, the
+same weights run in local mode). On a CUDA device the CQT runs through
+kernels A and B (`Config.use_pallas_cqt` "auto"/"on") and, with
+`Config.fused_convstack`, every Pitch2Pitch stack that kernel C's gate
+takes (`models/blocks.ConvStack.fusable`) through kernel C.
 
 Key naming: the 12-dim sigmoid output is matched to the nearest
 KEY_SIGNATURE_MAP row (circle of fifths) exactly like the MIREX scorer
@@ -67,6 +69,24 @@ class Prediction:
     tonic_logits: Optional[np.ndarray] = None
 
 
+@dataclass
+class WindowPrediction:
+    """One local-mode window: key over [start, end) seconds."""
+    start: float
+    end: float
+    key: str
+    tonic: str
+    confidence: float
+    genre: Optional[str] = None
+
+
+@dataclass
+class LocalPrediction:
+    windows: list
+    key_probs: Optional[np.ndarray] = None   # (T', 12) per-window sigmoids
+    tonic_logits: Optional[np.ndarray] = None
+
+
 class KeyEstimator:
     """Batched inference over arbitrary audio.
 
@@ -87,14 +107,19 @@ class KeyEstimator:
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device={device!r}: CUDA is not available "
                                "(pass device='cpu' to serve on the CPU)")
-        # serving is global mode, as in the JAX package
+        # the global model; predict_*_local run local_model, the same
+        # weights in local mode (as the JAX estimator applies one set of
+        # variables to both)
         self.cfg = cfg.replace(local=False)
         check_supported(self.cfg)
         self.use_kernels = use_cuda_kernels(self.cfg.use_pallas_cqt,
                                             self.device)
         self.model = PitchClassNet(self.cfg)
         load_state_dict(self.model, state_dict)
+        self.local_model = PitchClassNet(self.cfg.replace(local=True))
+        self.local_model.load_state_dict(self.model.state_dict())
         self.model.to(self.device).eval()
+        self.local_model.to(self.device).eval()
         self.bucket_seconds = bucket_seconds
 
     # ------------------------------------------------------------------
@@ -160,20 +185,57 @@ class KeyEstimator:
 
     def predict_files(self, paths: Sequence[Union[str, os.PathLike]],
                       **kw) -> List[Prediction]:
+        return self._predict_files(paths, self.predict_waveforms, **kw)
+
+    def _predict_files(self, paths, fn, **kw):
         decoded = list(audio_io.decode_many(str(p) for p in paths))
         by_sr = {}
         for i, (w, sr) in enumerate(decoded):
             by_sr.setdefault(sr, []).append((i, w))
         results: list = [None] * len(decoded)
         for sr, group in by_sr.items():
-            preds = self.predict_waveforms([w for _, w in group], sr, **kw)
+            preds = fn([w for _, w in group], sr, **kw)
             for (i, _), p in zip(group, preds):
                 results[i] = p
         return results
 
-    def predict_waveforms_local(self, *a, **kw):
-        raise NotImplementedError(
-            "local-mode serving is not ported yet: ROADMAP.md port queue "
-            "item 2 (local mode)")
+    # ------------------------------------------------------------------
+    # local (per-window) key sequences, the serving face of local mode
+    # ------------------------------------------------------------------
+    @torch.inference_mode()
+    def predict_waveforms_local(self, waveforms: Sequence[np.ndarray],
+                                sr: int, return_raw: bool = False
+                                ) -> List[LocalPrediction]:
+        """Per-window key estimates: each window spans loc_window_size
+        seconds, advancing 1/frames seconds per step (the local head's
+        sliding max over frame windows)."""
+        cfg = self.cfg
+        batch, seq_t, hop = self.make_batch(waveforms, sr)
+        out = self.local_model(self.features(batch, sr, hop))
+        key = out[0].cpu().numpy()                   # (N, T', 12)
+        tonic = out[1].cpu().numpy()
+        genre = out[2].cpu().numpy() if len(out) > 2 else None
+        seq = seq_t.cpu().numpy()
+        win_s, step_s = cfg.loc_window_size, 1.0 / cfg.frames
+        preds = []
+        for i in range(len(waveforms)):
+            n_windows = min(max(int(seq[i]) - cfg.loc_window_size
+                                * cfg.frames + 1, 0), key.shape[1])
+            windows = []
+            for t in range(n_windows):
+                info = key_name(key[i, t], tonic[i, t])
+                windows.append(WindowPrediction(
+                    start=t * step_s, end=t * step_s + win_s,
+                    key=info["key"], tonic=info["tonic"],
+                    confidence=info["confidence"],
+                    genre=(A_GENRES[int(np.argmax(genre[i, t]))]
+                           if genre is not None else None)))
+            preds.append(LocalPrediction(
+                windows=windows,
+                key_probs=key[i, :n_windows] if return_raw else None,
+                tonic_logits=tonic[i, :n_windows] if return_raw else None))
+        return preds
 
-    predict_files_local = predict_waveforms_local
+    def predict_files_local(self, paths: Sequence[Union[str, os.PathLike]],
+                            **kw) -> List[LocalPrediction]:
+        return self._predict_files(paths, self.predict_waveforms_local, **kw)

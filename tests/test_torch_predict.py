@@ -97,9 +97,6 @@ def test_cli_defaults_to_cuda(tmp_path):
 
 def test_unported_entry_points_raise(tmp_path):
     from audio_key_estimation_torch.models import PitchClassNet
-    est = KeyEstimator(CFG, PitchClassNet(CFG).state_dict(), device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        est.predict_files_local(_wavs(tmp_path))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         KeyEstimator.from_checkpoint(str(tmp_path))
     with pytest.raises(ValueError, match="CUDA"):
