@@ -1,14 +1,17 @@
 """audio_key_estimation_torch — PyTorch/CUDA port of the key estimator.
 
 The JAX package `audio_key_estimation_tpu` is the reference; this package
-reproduces its serving path (PCM16 WAV -> batched log1p-CQT ->
-PitchClassNet -> key name) on PyTorch, with the TPU's Pallas kernels
-rewritten by hand as CUDA C++ kernels for Hopper (sm_90a). It imports
-`torch` and never `jax`, and nothing of the reference package: what it
-needs from there (the `Config`, the key-signature map, the CQT constants,
-the PCM16 reader) it carries as its own copies, pinned to the originals
-by tests/test_torch_imports.py. Its entry points serve on the CUDA card
-and run on the CPU only when the caller asks for it (device="cpu").
+reproduces its serving path (audio -> batched log1p-CQT -> PitchClassNet
+-> key name) and its dataset preprocessing (audio files -> batched CQT
+per group of songs -> feature cache -> labels -> padded batches) on
+PyTorch, with the TPU's Pallas kernels rewritten by hand as CUDA C++
+kernels for Hopper (sm_90a). It imports `torch` and never `jax`, and
+nothing of the reference package: what it needs from there (the
+`Config`, the key-signature map, the CQT constants, the decoders, the
+loaders and label builders, the C++ audio library's sources) it carries
+as its own copies, pinned to the originals by
+tests/test_torch_imports.py. Its entry points run on the CUDA card and
+on the CPU only when the caller asks for it (device="cpu").
 
 Layering (bottom -> top), module names mirror the JAX package:
   csrc/       CUDA C++ kernels (nvcc) and their torch.ops.akt operators
@@ -18,11 +21,14 @@ Layering (bottom -> top), module names mirror the JAX package:
               ConvStack layer (convstack_cuda kernel C)
   models/     nn.Modules: PitchClassNet (default variant), blocks, channel
               schedule, JAX-variables -> state_dict conversion
-  data/       PCM16 WAV decode and batch packing
-  utils/      the key-signature map
+  native/     the host C++ audio library (WAV, MP3, decode pool, batch
+              ingest) and its ctypes binding, built at first use
+  data/       audio decode and batch ingest, the MP3 decoder, corpus
+              loaders, synthetic corpora, KeyDataset
+  utils/      the key-signature map, label builders
   config.py   the Config dataclass and its argparse helpers
   predict.py  KeyEstimator serving API
-  cli/        predict entry point
+  cli/        predict entry point, dataset wiring
 """
 
 __version__ = "0.1.0"

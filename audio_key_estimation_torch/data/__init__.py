@@ -1,1 +1,2 @@
-"""Host-side audio ingest for the port: PCM16 WAV decode and batch packing."""
+"""Host side of the port: audio decode and ingest, the MP3 decoder,
+corpus loaders, synthetic corpora and the dataset."""

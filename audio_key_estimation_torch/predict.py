@@ -188,7 +188,10 @@ class KeyEstimator:
         return self._predict_files(paths, self.predict_waveforms, **kw)
 
     def _predict_files(self, paths, fn, **kw):
-        decoded = list(audio_io.decode_many(str(p) for p in paths))
+        # raw: PCM16 stays int16 (the CQT normalizes on the device); MP3
+        # and every other WAV encoding decode to float32
+        decoded = list(audio_io.decode_many((str(p) for p in paths),
+                                            raw=True))
         by_sr = {}
         for i, (w, sr) in enumerate(decoded):
             by_sr.setdefault(sr, []).append((i, w))

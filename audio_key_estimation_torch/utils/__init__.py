@@ -1,1 +1,2 @@
-"""Host-side constants of the port."""
+"""Constants and label builders of the port: the key-signature map and
+the key, signature and tonic labels."""

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving path once on one CUDA card.
+"""Drive the PyTorch port's serving and dataset paths once on one CUDA card.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -9,7 +9,8 @@ non-zero):
   2 build    compile the hand-written kernels (csrc/*.cu, nvcc) and their
              operator bindings (csrc/bindings.cpp, the host compiler
              against torch's headers), load them as torch.ops.akt and
-             list the registered operators;
+             list the registered operators; build the host audio library
+             (native/*.cpp, the host compiler);
   3 kernels  hold each kernel against its plain PyTorch version at the
              serving path's shapes (16 clips x 120 s PCM16 at 22050 Hz:
              kernel A's 7 octave steps into the stream arena, kernel B's
@@ -40,23 +41,38 @@ non-zero):
              of the model stage (torch.profiler); for the default the
              stage split; then local mode (predict_files_local: windows
              per clip and the first window's span, launches, the same
-             holds against the plain local path);
-  5 probes   the probe and experiment kernels (ops/probes_cuda.py and
+             holds against the plain local path); then one default-model
+             batch of PCM16, float32 and 24-bit WAVs (a float32 batch
+             through A, B and C), held the same way;
+  5 dataset  KeyDataset.import_data on corpora written with
+             data/synthetic.py: 48 songs in 3 groups of 16 (120 s PCM16
+             at 44.1 kHz; 120 s float32 and 24-bit WAV at 44.1 kHz with
+             float32 streams and the multi_scale 12-bin CQT; 60-420 s at
+             22050 Hz in mixed encodings with local labels), each imported
+             with the kernels and with the plain CQT on the card: A 7 and
+             B 1 launches per group and bins/octave, every mel held at
+             check_cqt's bars, labels and batches() equal; 4 songs in
+             window_size mode (frames == 0) the same way; the feature
+             cache written (`_cuda` sidecars) and read back with no
+             launch; walls split into decode, pack + H2D, CQT and labels;
+  6 probes   the probe and experiment kernels (ops/probes_cuda.py and
              kernel B's stage split) against their plain versions at a
              small geometry and at the serving geometry, exact for the
              copies, and #8 replayed from a CUDA graph; then each probe
              entry point
              (audio_key_estimation_torch/scripts/) driven once at the
              serving geometry, every probe kernel's launch count checked;
-  6 result   the card line, the kernels JSON line, and the last line
+  7 result   the card line, the kernels JSON line, and the last line
              {"ok": true, "device": {...}}.
 Imports only torch, numpy and the port (no JAX).
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import os
+import struct
 import sys
 import tempfile
 import time
@@ -66,9 +82,13 @@ import torch
 import torch.nn.functional as F
 
 from audio_key_estimation_torch.config import Config
-from audio_key_estimation_torch.data import audio_io
+from audio_key_estimation_torch.data import audio_io, loaders, synthetic
+from audio_key_estimation_torch.data.dataset import KeyDataset
+from audio_key_estimation_torch.data.dataset import \
+    cache_path as dataset_cache_path
 from audio_key_estimation_torch.models import PitchClassNet
 from audio_key_estimation_torch.models.blocks import BatchNorm, ConvStack
+from audio_key_estimation_torch.native import binding
 from audio_key_estimation_torch.ops import _build
 from audio_key_estimation_torch.ops import convstack_cuda as CS
 from audio_key_estimation_torch.ops import cqt as C
@@ -743,7 +763,11 @@ def expected_launches(est: KeyEstimator) -> dict:
 
 def counted(fn):
     """fn() with every kernel count set to 0 just before and read just
-    after; returns (result, launches, wall seconds)."""
+    after; returns (result, launches, wall seconds). The heap is
+    collected first: where the interpreter's next full collection falls
+    depends on everything the process allocated before, and one that
+    lands inside the timed call adds its cost to that call's wall."""
+    gc.collect()
     for c in COUNTERS:
         c.launches = 0
     torch.cuda.synchronize()
@@ -971,11 +995,79 @@ def serve_local(paths, device) -> dict:
             "conv7_ms": split["conv7_ms"], "held": held}
 
 
+def write_encoded(path: str, y: np.ndarray, sr: int, enc: str) -> str:
+    """Mono WAV of y in one encoding: "pcm16" (audio_io.write_wav),
+    "f32" (IEEE float) or "s24" (24-bit PCM)."""
+    if enc == "pcm16":
+        audio_io.write_wav(path, y, sr)
+        return path
+    if enc == "f32":
+        fmt, bits, data = 3, 32, np.asarray(y, "<f4").tobytes()
+    elif enc == "s24":
+        v = np.round(np.clip(y, -1, 1) * (2 ** 23 - 1)).astype("<i4")
+        fmt, bits = 1, 24
+        data = v.view("u1").reshape(-1, 4)[:, :3].tobytes()
+    else:
+        raise ValueError(f"encoding {enc!r}")
+    with open(path, "wb") as f:
+        f.write(b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE")
+        f.write(b"fmt " + struct.pack("<IHHIIHH", 16, fmt, 1, sr,
+                                      sr * bits // 8, bits // 8, bits))
+        f.write(b"data" + struct.pack("<I", len(data)) + data)
+    return path
+
+
+ENCODINGS = ("pcm16", "f32", "s24")
+
+
+def serve_mixed(waves, td: str, device) -> dict:
+    """One default-variant batch of PCM16, float32 and 24-bit WAVs (16 x
+    120 s): decode gives int16 and float32 waveforms, so the batch goes
+    to kernels A, B and C as float32 (pack_batch); launches A 7, B 1,
+    C 3; the served batch held as in serve_variants (hold_served), its
+    outputs against the plain path's (agreement)."""
+    paths = [write_encoded(os.path.join(td, f"mixed_{i}.wav"), w, SR,
+                           ENCODINGS[i % 3]) for i, w in enumerate(waves)]
+    cfg = Config(fused_convstack=True)
+    weights = seeded_weights(cfg)
+    est = KeyEstimator(cfg, weights, device=device)
+    plain = KeyEstimator(cfg.replace(use_pallas_cqt="off",
+                                     fused_convstack=False),
+                         weights, device=device)
+    est.predict_files(paths)      # warm-up
+    plain.predict_files(paths)
+    preds, launches, wall, feats, stacks = served(
+        est, lambda: est.predict_files(paths, return_raw=True))
+    if launches != expected_launches(est) or launches["conv7_layer"] != 3:
+        raise AssertionError(f"mixed-encoding serve launches {launches}")
+    if [b.dtype for b, *_ in feats] != [torch.float32]:
+        raise AssertionError("mixed-encoding serve: batches "
+                             f"{[b.dtype for b, *_ in feats]}, want one "
+                             "float32 batch")
+    t0 = time.perf_counter()
+    ref = plain.predict_files(paths, return_raw=True)
+    torch.cuda.synchronize()
+    wall_plain = time.perf_counter() - t0
+    agree = agreement("mixed encodings", preds, ref, (len(paths), 12))
+    held = hold_served("mixed encodings", est, feats, stacks)
+    del feats, stacks
+    audio_min = len(paths) * CLIP_SECONDS / 60.0
+    log(f"[4 serve] mixed encodings (PCM16, float32, 24-bit WAV; one "
+        f"float32 batch): launches A {launches['cascade_pad']} B "
+        f"{launches['octave_response']} C {launches['conv7_layer']}; "
+        f"{agreement_text(agree)}; wall {wall * 1e3:.1f} ms = "
+        f"{audio_min / wall:.1f} audio-min/s (plain path "
+        f"{wall_plain * 1e3:.1f} ms) ({card_line()})")
+    log(held_text("mixed encodings", held))
+    return {"launches": launches, **agree, "wall_ms": wall * 1e3,
+            "plain_wall_ms": wall_plain * 1e3, "held": held}
+
+
 def stage_ms(est: KeyEstimator, paths) -> dict:
     """Split one predict_files call into decode, batch + H2D, CQT and
     model, each stage ending in torch.cuda.synchronize()."""
     t = [time.perf_counter()]
-    decoded = list(audio_io.decode_many(paths))
+    decoded = list(audio_io.decode_many(paths, raw=True))
     t.append(time.perf_counter())
     sr = decoded[0][1]
     batch, seq, hop = est.make_batch([w for w, _ in decoded], sr)
@@ -1000,7 +1092,7 @@ def model_split(est: KeyEstimator, paths, with_conv7: bool = True,
     (kernels and copies; the host's aten rows carry the same time again),
     kernel C's rows (which must be there when with_conv7, and absent
     otherwise) against the rest and the largest rows by name."""
-    decoded = list(audio_io.decode_many(paths))
+    decoded = list(audio_io.decode_many(paths, raw=True))
     sr = decoded[0][1]
     batch, seq, hop = est.make_batch([w for w, _ in decoded], sr)
     act = torch.profiler.ProfilerActivity
@@ -1034,7 +1126,319 @@ def model_split(est: KeyEstimator, paths, with_conv7: bool = True,
 
 
 # ---------------------------------------------------------------------------
-# phase 5: the probe and experiment kernels
+# phase 5: dataset preprocessing
+# ---------------------------------------------------------------------------
+
+GS_SR = 44100            # GiantSteps audio
+WR_SR = 22050
+# spellings in the loaders' vocabularies (GiantSteps: flats)
+GS_KEYS = [f"{n} {m}" for m in ("major", "minor")
+           for n in ("C", "Db", "D", "Eb", "E", "F", "Gb", "G", "Ab", "A",
+                     "Bb", "B")]
+WR_KEYS = [f"{n}:{m}" for m in ("maj", "min")
+           for n in ("C", "C#", "D", "Eb", "E", "F", "F#", "G", "Ab", "A",
+                     "Bb", "B")]
+DATASET_COUNTERS = (K.cascade_pad, K.octave_response)
+
+
+class Tones:
+    """Song audio: two partials of a per-song pitch plus noise, as
+    clips() makes it, at any rate and length. The first 10 s are
+    computed and repeated to the song's length, so writing the phase's
+    two hours of audio costs the host seconds, not tens of seconds."""
+
+    def __init__(self, seed: int = 1):
+        self.rng = np.random.default_rng(seed)
+
+    def __call__(self, sr: int, seconds: float, i: int) -> np.ndarray:
+        n = int(round(sr * seconds))
+        t = np.arange(min(n, 10 * sr)) / sr
+        f0 = 110.0 * 2 ** (i / 7)
+        y = (0.4 * np.sin(2 * np.pi * f0 * t)
+             + 0.2 * np.sin(2 * np.pi * 1.5 * f0 * t)).astype(np.float32)
+        y += 0.05 * self.rng.standard_normal(len(t), dtype=np.float32)
+        return np.resize(0.5 * y, n)
+
+
+def build_corpora(root: str) -> dict:
+    """The dataset phase's corpora, written with the port's
+    data/synthetic.py, each imported as one group of songs:
+      gs_pcm16   16 x 120 s, 44.1 kHz, PCM16 (GiantSteps layout, genres);
+      gs_float   16 x 120 s, 44.1 kHz, float32 and 24-bit WAV;
+      winterreise  16 songs of 60-420 s at 22050 Hz in PCM16, float32
+                 and 24-bit WAV, each with two or three local key
+                 segments (Winterreise layout);
+      window     4 songs of 61-188 s at 44.1 kHz (PCM16 and float32), for
+                 the frames == 0 (window_size) mode and the cache.
+    Returns name -> (root, seconds of audio)."""
+    tones = Tones()
+    genres = loaders.GiantStepsKeyLoader.GENRES
+    out = {}
+
+    def giantsteps(name, encs, seconds):
+        songs = [(f"{name}_{i:02d}", 0.0, GS_KEYS[(5 * i) % 24],
+                  genres[i % len(genres)])
+                 for i in range(len(encs))]
+        d = synthetic.make_giantsteps_corpus(
+            os.path.join(root, name), songs,
+            audio_fn=lambda p, key, i: write_encoded(
+                p, tones(GS_SR, seconds[i], i), GS_SR, encs[i]))
+        out[name] = (d, float(sum(seconds)))
+
+    giantsteps("gs_pcm16", ["pcm16"] * 16, [120.0] * 16)
+    giantsteps("gs_float", ["f32", "s24"] * 8, [120.0] * 16)
+    giantsteps("window", ["pcm16", "f32"] * 2,
+               [61.3, 97.7, 143.1, 187.9])
+    wr_seconds = [60.0 + 24 * i + 0.37 * (i % 5) for i in range(16)]
+    songs = [(f"P{i:02d}", f"D911-{i + 1:02d}", 0.0, WR_KEYS[(7 * i) % 24])
+             for i in range(16)]
+    segments = {}
+    for i, (perf, song, _, key) in enumerate(songs):
+        s = wr_seconds[i]
+        cuts = [0.0, round(s * 0.4, 1)] + ([round(s * 0.75, 1)]
+                                           if i % 2 else []) + [s]
+        keys = [key, WR_KEYS[(7 * i + 7) % 24], WR_KEYS[(7 * i + 14) % 24]]
+        segments[f"{perf}_{song}"] = [(a, b, keys[j]) for j, (a, b) in
+                                      enumerate(zip(cuts, cuts[1:]))]
+    names = [f"{p}_{s}" for p, s, _, _ in songs]
+    d = synthetic.make_winterreise_corpus(
+        os.path.join(root, "winterreise"), songs, local_segments=segments,
+        audio_fn=lambda p, name, segs: write_encoded(
+            p, tones(WR_SR, wr_seconds[names.index(name)],
+                     names.index(name)), WR_SR,
+            ENCODINGS[names.index(name) % 3]))
+    out["winterreise"] = (d, float(sum(wr_seconds)))
+    return out
+
+
+def timed_import(ds: KeyDataset, loader) -> dict:
+    """ds.import_data(loader) with every kernel count set to 0 just
+    before and read just after, its wall split into decode (the time
+    spent in decode_many's generator), pack + H2D (ds._batch), CQT and
+    readback (ds._features) and labels (ds._finish_item), each stage
+    ending in a synchronize; and each CQT call's launches, batch and
+    bins/octave."""
+    t = {"decode": 0.0, "pack+H2D": 0.0, "CQT": 0.0, "labels": 0.0}
+    calls = []
+    decode_many = audio_io.decode_many
+    batch, features, finish = ds._batch, ds._features, ds._finish_item
+
+    def timed(key, fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            t[key] += time.perf_counter() - t0
+            return out
+        return run
+
+    def decoding(*a, **kw):
+        it = decode_many(*a, **kw)
+        while True:
+            t0 = time.perf_counter()
+            try:
+                x = next(it)
+            except StopIteration:
+                return
+            finally:
+                t["decode"] += time.perf_counter() - t0
+            yield x
+
+    def counting(y, p):
+        before = [c.launches for c in DATASET_COUNTERS]
+        out = timed("CQT", features)(y, p)
+        calls.append({"launches": [c.launches - b for c, b in
+                                   zip(DATASET_COUNTERS, before)],
+                      "batch": tuple(y.shape), "dtype": y.dtype,
+                      "bpo": p.bins_per_octave, "hop": p.hop})
+        return out
+
+    ds._batch, ds._features = timed("pack+H2D", batch), counting
+    ds._finish_item = timed("labels", finish)
+    audio_io.decode_many = decoding
+    gc.collect()              # as in counted()
+    for c in DATASET_COUNTERS:
+        c.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    try:
+        ds.import_data(loader, progress=False)
+        torch.cuda.synchronize()
+    finally:
+        audio_io.decode_many = decode_many
+        del ds._batch, ds._features, ds._finish_item
+    wall = time.perf_counter() - t0
+    return {"wall": wall, "split": t, "calls": calls,
+            "launches": {c.__name__: c.launches for c in DATASET_COUNTERS}}
+
+
+def check_dataset_launches(name: str, run: dict, kernels: bool,
+                           octaves: int) -> None:
+    """Kernels on: A octaves-1 and B 1 launches per CQT call (one call per
+    group and bins/octave); off: none."""
+    want = [octaves - 1, 1] if kernels else [0, 0]
+    bad = [c for c in run["calls"] if c["launches"] != want]
+    if not run["calls"] or bad:
+        raise AssertionError(f"dataset {name}: CQT calls {run['calls']}, "
+                             f"each must launch A/B {want}")
+
+
+def hold_dataset(name: str, got: KeyDataset, ref: KeyDataset) -> dict:
+    """The kernel run's dataset against the plain run's: every item's mel
+    (and mel2) at check_cqt's bars for the stream dtype; labels, genre,
+    window coverage, seq_length and every other batches() array equal."""
+    sd = torch_dtype(got.cfg.cqt_conv_dtype)
+    if [it["file"] for it in got.items] != [it["file"] for it in ref.items]:
+        raise AssertionError(f"dataset {name}: items differ")
+    d = {"mel": 0.0, "mel2": 0.0}
+    for g, r in zip(got.items, ref.items):
+        if sorted(g) != sorted(r):
+            raise AssertionError(f"dataset {name}: keys {sorted(g)} vs "
+                                 f"{sorted(r)}")
+        for k in r:
+            if k in d:
+                d[k] = max(d[k], check_cqt(
+                    f"dataset {name} {os.path.basename(r['file'])} {k}",
+                    torch.from_numpy(g[k]), torch.from_numpy(r[k]), sd))
+            elif not np.array_equal(g[k], r[k]):
+                raise AssertionError(f"dataset {name}: {k} differs for "
+                                     f"{r['file']}")
+    for bs in (16, 5):
+        for gb, rb in zip(got.batches(bs), ref.batches(bs), strict=True):
+            for k in rb:
+                if k not in d and not np.array_equal(gb[k], rb[k]):
+                    raise AssertionError(f"dataset {name}: batches({bs}) "
+                                         f"{k} differs")
+    return d
+
+
+def split_text(run: dict) -> str:
+    return ", ".join(f"{k} {v * 1e3:.1f}" for k, v in run["split"].items())
+
+
+def dataset_pair(name, root, seconds, loader_of, cfg, genre, device) -> dict:
+    """One corpus imported twice on the card, use_cache=False: the kernels
+    (use_pallas_cqt="on") and the plain CQT ("off"); launches checked,
+    the kernel run held against the plain run (hold_dataset)."""
+    runs, sets = {}, {}
+    for mode in ("on", "off"):
+        ds = KeyDataset(genre, cfg.replace(use_pallas_cqt=mode),
+                        blacklist_path="", use_cache=False, device=device)
+        runs[mode] = timed_import(ds, loader_of(root))
+        check_dataset_launches(name, runs[mode], mode == "on", cfg.octaves)
+        sets[mode] = ds
+    held = hold_dataset(name, sets["on"], sets["off"])
+    n = len(sets["on"])
+    on, off = runs["on"], runs["off"]
+    groups = "; ".join(
+        f"{c['batch']} {str(c['dtype']).split('.')[-1]} {c['bpo']} bpo hop "
+        f"{c['hop']}" for c in on["calls"])
+    log(f"[5 dataset] {name}: {n} songs, {seconds / 60:.1f} audio-min, "
+        f"CQT calls [{groups}], launches A {on['launches']['cascade_pad']} B "
+        f"{on['launches']['octave_response']} (plain run 0/0); "
+        f"import_data {on['wall'] * 1e3:.1f} ms ({split_text(on)} ms) = "
+        f"{n / on['wall']:.2f} songs/s, {seconds / 60 / on['wall']:.1f} "
+        f"audio-min/s; plain {off['wall'] * 1e3:.1f} ms ({split_text(off)} "
+        f"ms) = {n / off['wall']:.2f} songs/s, "
+        f"{seconds / 60 / off['wall']:.1f} audio-min/s; mel max|d| "
+        f"{held['mel']:.3g}" + (f", mel2 {held['mel2']:.3g}"
+                                if cfg.multi_scale else "")
+        + f" ({cfg.cqt_conv_dtype} streams; labels, coverage, seq_length "
+        f"and batches equal) ({card_line()})")
+    return {"songs": n, "seconds": seconds, "on": on, "off": off,
+            "held": held}
+
+
+def dataset_cache(root: str, cfg: Config, device) -> dict:
+    """One import with use_cache=True writes a `_cuda` sidecar per song
+    (and no plain-named one); a second import reads every one back
+    unchanged and launches no kernel."""
+    gs = loaders.GiantStepsKeyLoader
+    first = KeyDataset(False, cfg, blacklist_path="", device=device)
+    r1 = timed_import(first, gs(root))
+    check_dataset_launches("cache, first import", r1, True, cfg.octaves)
+    for it in first.items:
+        side = first.cache_path(it["file"], cfg.bins_per_octave)
+        plain = dataset_cache_path(it["file"], cfg, cfg.bins_per_octave)
+        if "_cuda" not in side or not os.path.exists(side) \
+                or os.path.exists(plain):
+            raise AssertionError(f"dataset cache: sidecar {side} "
+                                 f"(plain-named {plain})")
+    again = KeyDataset(False, cfg, blacklist_path="", device=device)
+    r2 = timed_import(again, gs(root))
+    if r2["calls"] or any(r2["launches"].values()):
+        raise AssertionError(f"dataset cache reread launched "
+                             f"{r2['launches']} in {r2['calls']}")
+    for a, b in zip(first.items, again.items, strict=True):
+        if a["file"] != b["file"] or not np.array_equal(a["mel"], b["mel"]):
+            raise AssertionError(f"dataset cache: {a['file']} changed")
+    log(f"[5 dataset] cache: first import {r1['wall'] * 1e3:.1f} ms wrote "
+        f"{len(first)} `_cuda` sidecars (launches A "
+        f"{r1['launches']['cascade_pad']} B "
+        f"{r1['launches']['octave_response']}); second import "
+        f"{r2['wall'] * 1e3:.1f} ms read every one back unchanged, launches "
+        f"A {r2['launches']['cascade_pad']} B "
+        f"{r2['launches']['octave_response']}")
+    return {"first": r1, "again": r2}
+
+
+def run_dataset(td: str, device) -> dict:
+    """The dataset preprocessing path on the card: three corpora of 16
+    songs (one group each) imported with the kernels and with the plain
+    CQT and held against each other; four songs in window_size mode
+    (frames == 0, one group per song); the feature cache written and
+    read back."""
+    t0 = time.perf_counter()
+    corpora = build_corpora(td)
+    t_build = time.perf_counter() - t0
+    log(f"[5 dataset] corpora written with data/synthetic.py in "
+        f"{t_build:.1f} s: " + ", ".join(
+            f"{k} {v[1] / 60:.1f} audio-min" for k, v in corpora.items())
+        + "; no cut (48 songs in 3 groups of 16, 4 window_size songs)")
+    gs = loaders.GiantStepsKeyLoader
+    plan = [
+        ("gs_pcm16", "", gs, Config(), True),
+        ("gs_float", " (float32 streams, multi_scale mel2)", gs,
+         Config(multi_scale=True, cqt_conv_dtype="float32"), True),
+        ("winterreise", " (local labels)",
+         lambda r: loaders.SchubertWinterreiseLoader(r, local=True),
+         Config(local=True), False),
+        ("window", " (frames=0)", gs, Config(frames=0), False),
+    ]
+    res = {}
+    for name, what, loader_of, cfg, genre in plan:
+        root, seconds = corpora[name]
+        res[name] = dataset_pair(name + what, root, seconds, loader_of, cfg,
+                                 genre, device)
+    res["cache"] = dataset_cache(corpora["window"][0], Config(frames=0),
+                                 device)
+    main = [res[k] for k in ("gs_pcm16", "gs_float", "winterreise")]
+    songs = sum(r["songs"] for r in main)
+    seconds = sum(r["seconds"] for r in main)
+    wall = {m: sum(r[m]["wall"] for r in main) for m in ("on", "off")}
+    split = {k: sum(r["on"]["split"][k] for r in main)
+             for k in main[0]["on"]["split"]}
+    launches = {k: sum(r["on"]["launches"][k] for r in main)
+                for k in main[0]["on"]["launches"]}
+    mel_d = max(r["held"]["mel"] for r in res.values() if "held" in r)
+    log(f"[5 dataset] 48 songs in 3 groups: import_data "
+        f"{wall['on'] * 1e3:.1f} ms (" + ", ".join(
+            f"{k} {v * 1e3:.1f}" for k, v in split.items())
+        + f" ms) = {songs / wall['on']:.2f} songs/s, "
+        f"{seconds / 60 / wall['on']:.1f} audio-min/s; plain CQT "
+        f"{wall['off'] * 1e3:.1f} ms = {songs / wall['off']:.2f} songs/s, "
+        f"{seconds / 60 / wall['off']:.1f} audio-min/s; launches A "
+        f"{launches['cascade_pad']} B {launches['octave_response']}; largest "
+        f"mel |d| {mel_d:.3g}, mel2 {res['gs_float']['held']['mel2']:.3g} "
+        f"({card_line()})")
+    return {"launches": launches,
+            "window_launches": res["window"]["on"]["launches"],
+            "cache_launches": res["cache"]["again"]["launches"],
+            "mel_d": mel_d, "res": res}
+
+
+# ---------------------------------------------------------------------------
+# phase 6: the probe and experiment kernels
 # ---------------------------------------------------------------------------
 
 def check_exact(name, got, ref) -> float:
@@ -1073,7 +1477,7 @@ def check_window_copy(device) -> dict:
                 # the windows the variant stages, and its output
                 res["bound_ms"] += bound(nbytes + len(starts) * 4)[
                     "bound_ms"]
-    log("[5 probes] #5 window_copy: 6 variants x 2 geometries exact; at "
+    log("[6 probes] #5 window_copy: 6 variants x 2 geometries exact; at "
         "serving geometry " + ", ".join(
             f"{v} {r:.0f} GB/s" for v, r in res["rates"].items()))
     return res
@@ -1140,7 +1544,7 @@ def check_stages(y: torch.Tensor, p: C.CQTParams, device) -> dict:
             return lambda: [fn(*a, stage) for a in octs]
         res["ms"][stage] = time_ms(run(K.octave_response_stage))
         res["plain_ms"][stage] = time_ms(run(K.octave_response_stage_plain))
-    log("[5 probes] #6 kernel B stages, 8 octaves at serving geometry: "
+    log("[6 probes] #6 kernel B stages, 8 octaves at serving geometry: "
         + ", ".join(f"{s} {res['ms'][s]:.4f} ms (plain "
                     f"{res['plain_ms'][s]:.4f})" for s in K.STAGES)
         + f"; max|d| gemm/full {res['err']:.3g}; full == kernel B; bound "
@@ -1165,7 +1569,7 @@ def check_transpose_pad(y: torch.Tensor) -> dict:
     res.update(bound((y.shape[1] + lfull) * y.shape[0] * y.element_size()))
     res["ms"] = time_ms(lambda: PC.transpose_pad(y, 256, lfull))
     res["plain_ms"] = time_ms(lambda: PC.transpose_pad_plain(y, 256, lfull))
-    log(f"[5 probes] #7 transpose_pad: int16 and f32 exact; serving int16 "
+    log(f"[6 probes] #7 transpose_pad: int16 and f32 exact; serving int16 "
         f"{res['ms']:.4f} ms vs plain {res['plain_ms']:.4f} ms")
     return res
 
@@ -1203,7 +1607,7 @@ def check_launch_and_primitives(device) -> dict:
         res["prim_bound_ms"] += bound(
             xi.numel() * xi.element_size()
             + int(np.prod(out_shape)) * 4)["bound_ms"]
-    log(f"[5 probes] #8 launch_probe grid 201: {res['launch_ms']:.4f} ms vs "
+    log(f"[6 probes] #8 launch_probe grid 201: {res['launch_ms']:.4f} ms vs "
         f"plain {res['launch_plain_ms']:.4f} ms; CUDA graph of "
         f"{probe_pallas_overhead.BURST} launches replayed exactly, "
         f"{res['graph_ms']:.5f} ms per launch; #9 six primitives exact, "
@@ -1234,11 +1638,11 @@ def drive_probes() -> dict:
         raise AssertionError(f"probe_pallas_primitives FAIL: {errs}")
     if not all(launches.values()):
         raise AssertionError(f"a probe entry point ran no kernel: {launches}")
-    log(f"[5 probes] entry points driven; launches {launches}")
-    log("[5 probes] #8 per launch (ms): " + ", ".join(
+    log(f"[6 probes] entry points driven; launches {launches}")
+    log("[6 probes] #8 per launch (ms): " + ", ".join(
         f"{k} {v:.5f}" for k, v in floor.items()
         if isinstance(k, str) and k.startswith("burst")))
-    log("[5 probes] #8 host per call (us, one process): " + ", ".join(
+    log("[6 probes] #8 host per call (us, one process): " + ", ".join(
         f"{k[6:]} {v:.3f}" for k, v in floor.items()
         if isinstance(k, str) and k.startswith("host, ")))
     return launches
@@ -1267,6 +1671,12 @@ def main() -> int:
     for line in so.with_suffix(".log").read_text().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[2 build]   {line.strip()}")
+    t0 = time.perf_counter()
+    host = binding.build()
+    binding.load_library()
+    log(f"[2 build] host audio library {host.name} in "
+        f"{time.perf_counter() - t0:.1f} s (c++ {' '.join(binding.CXX_FLAGS)}"
+        f", native/akx_native.cpp + akx_mp3.cpp)")
 
     waves = clips()
     y = torch.from_numpy(np.stack([pcm16(w) for w in waves])).to(device)
@@ -1283,6 +1693,9 @@ def main() -> int:
             audio_io.write_wav(paths[-1], w, SR)
         srv = serve_variants(paths, device)
         local = serve_local(paths, device)
+        mixed = serve_mixed(waves, td, device)
+    with tempfile.TemporaryDirectory() as td:
+        data = run_dataset(td, device)
 
     y = torch.from_numpy(np.stack([pcm16(w) for w in waves])).to(device)
     probe = {"window": check_window_copy(device),
@@ -1295,10 +1708,17 @@ def main() -> int:
     src = "audio_key_estimation_torch/csrc/"
     tpu = "audio_key_estimation_tpu/ops/"
     n = srv["default"]["launches"]
-    served_by = {f"variant {v}": r for v, r in srv.items()} | {"local": local}
-    # each served path's count of a kernel: the variants, and local mode
+    served_by = {f"variant {v}": r for v, r in srv.items()} | {
+        "local": local, "mixed encodings": mixed}
+    # each path's count of a kernel: the variants, local mode, the
+    # mixed-encoding batch, and the dataset phase (its three groups, the
+    # window_size songs, the cache reread)
     by_path = {k: {p: r["launches"][k] for p, r in served_by.items()}
                for k in n}
+    for k in data["launches"]:
+        by_path[k] |= {"dataset": data["launches"][k],
+                       "dataset frames=0": data["window_launches"][k],
+                       "dataset cache reread": data["cache_launches"][k]}
     # the largest |d| of the served batches' own CQT and kernel C stacks
     # against their plain versions, over every served path
     served_cqt_d = max(r["held"]["cqt_d"] for r in served_by.values())
@@ -1326,7 +1746,8 @@ def main() -> int:
             res["A_library_ms"], card_ms=res["A_card_ms"],
             library="F.conv1d stride 2 x 7, zero-padded interiors",
             launches_by_path=by_path["cascade_pad"],
-            served_cqt_max_abs_err=served_cqt_d),
+            served_cqt_max_abs_err=served_cqt_d,
+            dataset_max_abs_err=data["mel_d"]),
         row("cqt_response (kernel B, 8 octaves in one launch)",
             "cqt_response.cu",
             tpu + "cqt_pallas.py:163, " + tpu + "cqt_pallas.py:316",
@@ -1336,7 +1757,8 @@ def main() -> int:
             library="none (GEMM only: torch.matmul f32, TF32 off, "
                     "pre-gathered frames)",
             launches_by_path=by_path["octave_response"],
-            served_cqt_max_abs_err=served_cqt_d),
+            served_cqt_max_abs_err=served_cqt_d,
+            dataset_max_abs_err=data["mel_d"]),
         row("conv7 (kernel C, 3 layers: fused_convstack, f32 NCHW in and "
             "out)", "conv7.cu",
             tpu + "convstack_pallas.py:91", n["conv7_layer"], res["C"],
@@ -1389,7 +1811,7 @@ def main() -> int:
         card = (f", card {k['card_ms']:.4f} ms "
                 f"({k['bound_ms'] / k['card_ms']:.1%})" if "card_ms" in k
                 else "")
-        log(f"[6 result] {k['name']}: {k['ms']:.4f} ms eager, bound "
+        log(f"[7 result] {k['name']}: {k['ms']:.4f} ms eager, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}, "
             f"{k['bound_ms'] / k['ms']:.1%}){card}, plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}")

@@ -3,7 +3,10 @@
 The port (audio_key_estimation_torch) must import no JAX and nothing of
 the reference package, refuse a CUDA device it cannot have, and carry
 bit-exact copies of what it takes from the reference package: the
-`Config` and its helpers, the key-signature map and the host constants.
+`Config` and its helpers, the key-signature map, the host constants, and
+the files it carries byte for byte (the MP3 decoder and its tables, the
+loaders, labels, synthetic corpora, the blacklist and the C++ audio
+library's sources).
 """
 
 import argparse
@@ -46,9 +49,10 @@ TINY = dict(octaves=3, num_layers=2, conv_layers=1, n_filters=2,
 
 
 def test_port_serves_without_jax(tmp_path):
-    """Import the port (its CLI and probe entry points included) and
-    serve one tiny WAV on the CPU in a fresh interpreter: no jax/flax
-    module and no module of the JAX package may load."""
+    """Import the port (its CLI, dataset, host library binding and probe
+    entry points included), serve one tiny WAV and import a two-song
+    corpus on the CPU in a fresh interpreter: no jax/flax module and no
+    module of the JAX package may load."""
     code = textwrap.dedent(f"""
         import json, sys
         import numpy as np
@@ -64,6 +68,10 @@ def test_port_serves_without_jax(tmp_path):
             experiment_transpose_kernel, harness, probe_cqt_kernel_stages,
             probe_dma_rate, probe_pallas_overhead, probe_pallas_primitives,
             profile_cqt_frontend)
+        from audio_key_estimation_torch.cli import datasets
+        from audio_key_estimation_torch.data import loaders, synthetic
+        from audio_key_estimation_torch.data.dataset import KeyDataset
+        from audio_key_estimation_torch.native import binding
         cfg = Config(**{TINY!r})
         wav = {str(tmp_path / "a.wav")!r}
         t = np.arange(8000 * 2) / 8000
@@ -72,6 +80,14 @@ def test_port_serves_without_jax(tmp_path):
                            device="cpu", bucket_seconds=(3,))
         pred = est.predict_files([wav], return_raw=True)[0]
         assert np.isfinite(pred.key_probs).all(), pred
+        root = synthetic.make_giantsteps_corpus(
+            {str(tmp_path / "gs")!r}, [("a", 261.6, "C major", "techno"),
+                                       ("b", 440.0, "A minor", "pop rock")])
+        ds = KeyDataset(True, cfg, use_cache=False, device="cpu")
+        ds.import_data(loaders.GiantStepsKeyLoader(root), progress=False)
+        batch = next(ds.batches(2))
+        assert batch["mel"].shape[:2] == (2, cfg.pitches), batch["mel"].shape
+        assert np.isfinite(batch["mel"]).all() and batch["valid"].all()
         print(json.dumps({{"mods": sorted(sys.modules), "key": pred.key}}))
     """)
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -185,6 +201,41 @@ def test_cuda_device_refused_without_cuda(device):
         KeyEstimator(cfg, PitchClassNet(cfg).state_dict(), **device)
 
 
+@pytest.mark.parametrize("entry", ["dataset", "train_val", "test_sets"])
+def test_dataset_refuses_cuda_without_cuda(entry, tmp_path):
+    """KeyDataset and the cli.datasets builders compute on the card by
+    default; without CUDA they raise unless the CPU was asked for."""
+    if torch.cuda.is_available():
+        pytest.skip("this check needs a machine without CUDA")
+    from audio_key_estimation_torch.cli import datasets
+    from audio_key_estimation_torch.data.dataset import KeyDataset
+    cfg = port_config.Config(data_root=str(tmp_path), debug=True)
+    build = {"dataset": lambda **kw: KeyDataset(False, cfg, **kw),
+             "train_val": lambda **kw: datasets.build_train_val(cfg, **kw),
+             "test_sets": lambda **kw: datasets.build_test_sets(cfg, **kw)
+             }[entry]
+    for kw in ({}, {"device": "cuda"}):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            build(**kw)
+    assert build(device="cpu") is not None
+
+
+COPIES = [f"data/{n}" for n in (
+    "mp3.py", "_mp3_tables.py", "_mp3_tables_lsf.py", "_mp3_synth.py",
+    "_mp3_bands_lsf.py", "loaders.py", "synthetic.py", "short_songs.txt")] \
+    + ["utils/labels.py"] + [f"native/{n}" for n in (
+        "akx_native.cpp", "akx_mp3.cpp", "akx_decoded.h", "akx_mp3_tables.h")]
+
+
+@pytest.mark.parametrize("rel", COPIES)
+def test_byte_copies_equal(rel):
+    """Each file the port carries unchanged equals its original byte for
+    byte."""
+    ours = os.path.join(REPO, "audio_key_estimation_torch", rel)
+    ref = os.path.join(REPO, "audio_key_estimation_tpu", rel)
+    assert open(ours, "rb").read() == open(ref, "rb").read()
+
+
 def test_kernel_wrappers_never_fall_back_off_cpu():
     """A tensor that is neither on the CPU nor on a CUDA device must not
     reach a plain version: each wrapper raises."""
@@ -280,7 +331,7 @@ def test_channel_schedule_equal():
 
 def test_pcm16_io_matches_reference(tmp_path, rng):
     """write_wav / _wav_layout / _decode_wav_raw / pack_batch equal the
-    JAX package's, and the port refuses encodings it has not ported."""
+    JAX package's, and an MP3 decodes to the JAX package's samples."""
     y = (0.4 * rng.standard_normal(5001)).astype(np.float32)
     pa, pb = str(tmp_path / "a.wav"), str(tmp_path / "b.wav")
     audio_io.write_wav(pa, y, 16000)
@@ -291,7 +342,7 @@ def test_pcm16_io_matches_reference(tmp_path, rng):
     xb, srb = jax_audio_io._decode_wav_raw(pa)
     assert sra == srb and xa.dtype == np.int16
     np.testing.assert_array_equal(xa, xb)
-    xc, _ = audio_io.decode_audio(pa)
+    xc, _ = audio_io.decode_audio(pa, raw=True)
     np.testing.assert_array_equal(xc, jax_audio_io.decode_audio(pa, raw=True)[0])
     fa = xa.astype(np.float32) / 32768.0
     waves = [xa, xa[:100]]
@@ -301,9 +352,18 @@ def test_pcm16_io_matches_reference(tmp_path, rng):
     mixed = [xa, fa]
     np.testing.assert_array_equal(audio_io.pack_batch(mixed, 6000),
                                   jax_audio_io.pack_batch(mixed, 6000))
-    got = list(audio_io.decode_many([pa, pa]))
-    assert len(got) == 2 and got[1][1] == 16000
+    got = list(audio_io.decode_many([pa, pa], raw=True))
+    assert len(got) == 2 and got[1][1] == 16000 and got[1][0].dtype == np.int16
+    # MP3 decodes as the JAX package decodes it
+    sys.path.insert(0, os.path.join(REPO, "tests"))
+    import mp3_builder as B
+    g = B.Granule(big_values=30, big_pairs=tuple(
+        (int(a), int(b)) for a, b in rng.integers(-7, 8, (30, 2))),
+        table_select=(10, 10, 10), global_gain=190)
     mp3 = tmp_path / "c.mp3"
-    mp3.write_bytes(b"\xff\xfb" + bytes(100))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        audio_io.decode_audio(str(mp3))
+    mp3.write_bytes(B.build_stream([B.build_frame([g, g])] * 3))
+    ym, srm = audio_io.decode_audio(str(mp3), raw=True)
+    yj, srj = jax_audio_io.decode_audio(str(mp3), raw=True)
+    assert srm == srj == 44100 and ym.dtype == np.float32
+    assert ym.shape == (3 * 1152,) and np.abs(ym).max() > 0
+    np.testing.assert_array_equal(ym, yj)

@@ -4,6 +4,8 @@ Same tiny PCM16 WAVs, same weights (flax init, converted with
 `state_dict_from_jax`), float32 CQT streams on both sides.
 """
 
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
@@ -54,6 +56,59 @@ def test_predict_files_matches_jax(tmp_path, rng):
                                    rtol=1e-4, atol=1e-4)
         assert (g.key, g.tonic, g.genre) == (r.key, r.tonic, r.genre)
         assert abs(g.confidence - r.confidence) < 1e-4
+
+
+def test_predict_files_every_encoding_matches_jax(tmp_path, rng):
+    """MP3 (MPEG-2.5 at 8 kHz), float32 and 24-bit WAVs beside a PCM16
+    one: the batch goes to the CQT as float32, as the JAX estimator's."""
+    import struct
+    import sys
+    sys.path.insert(0, str(Path(__file__).parent))
+    import mp3_builder as B
+    paths = _wavs(tmp_path)
+    y = 0.3 * np.sin(2 * np.pi * 330.0 * np.arange(int(SR * 2.6)) / SR)
+    for name, fmt, bits, data in (
+            ("f.wav", 3, 32, y.astype("<f4").tobytes()),
+            ("i.wav", 1, 24, np.round(y * (2 ** 23 - 1)).astype("<i4")
+             .view("u1").reshape(-1, 4)[:, :3].tobytes())):
+        p = str(tmp_path / name)
+        with open(p, "wb") as f:
+            f.write(b"RIFF" + struct.pack("<I", 36 + len(data)) + b"WAVE")
+            f.write(b"fmt " + struct.pack("<IHHIIHH", 16, fmt, 1, SR,
+                                          SR * bits // 8, bits // 8, bits))
+            f.write(b"data" + struct.pack("<I", len(data)) + data)
+        paths.append(p)
+    g = B.Granule(big_values=60, big_pairs=tuple(
+        (int(a), int(b)) for a, b in rng.integers(-7, 8, (60, 2))),
+        table_select=(10, 10, 10), global_gain=200)
+    mp3 = tmp_path / "m.mp3"
+    mp3.write_bytes(B.build_stream([B.build_frame_lsf(g, sr=SR)] * 30))
+    paths.append(str(mp3))
+    _, variables = jax_variables(CFG, rng)
+    ref = JaxEstimator(CFG, variables, bucket_seconds=(4,)).predict_files(
+        paths, return_raw=True)
+    est = KeyEstimator(CFG, state_dict_from_jax(variables), device="cpu",
+                       bucket_seconds=(4,))
+    batches = []
+    make_batch = est.make_batch
+
+    def recording(waveforms, sr):
+        batches.append(make_batch(waveforms, sr))
+        return batches[-1]
+    est.make_batch = recording
+    got = est.predict_files(paths, return_raw=True)
+    assert [b[0].dtype for b in batches] == [torch.float32]
+    assert len(got) == len(ref) == 5
+    for g_, r in zip(got, ref):
+        np.testing.assert_allclose(g_.key_probs, r.key_probs, rtol=1e-4,
+                                   atol=1e-4)
+        np.testing.assert_allclose(g_.tonic_logits, r.tonic_logits,
+                                   rtol=1e-4, atol=1e-4)
+        assert (g_.key, g_.tonic, g_.genre) == (r.key, r.tonic, r.genre)
+    # a PCM16-only batch stays int16 end to end
+    batches.clear()
+    est.predict_files(paths[:2])
+    assert [b[0].dtype for b in batches] == [torch.int16]
 
 
 def test_key_name_agrees_on_every_signature_row(rng):
