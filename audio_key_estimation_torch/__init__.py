@@ -2,9 +2,10 @@
 
 The JAX package `audio_key_estimation_tpu` is the reference; this package
 reproduces its serving path (audio -> batched log1p-CQT -> PitchClassNet
--> key name) and its dataset preprocessing (audio files -> batched CQT
-per group of songs -> feature cache -> labels -> padded batches) on
-PyTorch, with the TPU's Pallas kernels rewritten by hand as CUDA C++
+-> key name), its dataset preprocessing (audio files -> batched CQT
+per group of songs -> feature cache -> labels -> padded batches) and its
+training and evaluation (loss, MIREX metrics, Adam, the Trainer,
+checkpoints) on PyTorch, with the TPU's Pallas kernels rewritten by hand as CUDA C++
 kernels for Hopper (sm_90a). It imports `torch` and never `jax`, and
 nothing of the reference package: what it needs from there (the
 `Config`, the key-signature map, the CQT constants, the decoders, the
@@ -19,16 +20,20 @@ Layering (bottom -> top), module names mirror the JAX package:
   ops/        CQT front-end (plain PyTorch + cqt_cuda kernels A/B),
               equivariant convs, pooling, masked pooling, the fused
               ConvStack layer (convstack_cuda kernel C)
-  models/     nn.Modules: PitchClassNet (default variant), blocks, channel
-              schedule, JAX-variables -> state_dict conversion
+  models/     nn.Modules: PitchClassNet (every variant but multi_scale),
+              blocks, channel schedule, JAX variables and Adam state ->
+              state_dict and torch.optim state conversion
   native/     the host C++ audio library (WAV, MP3, decode pool, batch
               ingest) and its ctypes binding, built at first use
   data/       audio decode and batch ingest, the MP3 decoder, corpus
-              loaders, synthetic corpora, KeyDataset
-  utils/      the key-signature map, label builders
+              loaders, synthetic corpora, KeyDataset, batch prefetch
+  utils/      the key-signature map, label builders, metrics logging
+  train/      loss, MIREX metrics, Adam with per-epoch decay,
+              checkpoints, the Trainer
   config.py   the Config dataclass and its argparse helpers
   predict.py  KeyEstimator serving API
-  cli/        predict entry point, dataset wiring
+  cli/        train, eval, predict and equivariance entry points,
+              dataset wiring
 """
 
 __version__ = "0.1.0"

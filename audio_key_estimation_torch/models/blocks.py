@@ -107,23 +107,36 @@ class ThirdUpsample(ConvParams):
 
 class BatchNorm(nn.Module):
     """torch BatchNorm2d semantics (momentum 0.1, eps 1e-5) without the
-    num_batches_tracked counter, so state_dicts match the JAX export."""
+    num_batches_tracked counter, so state_dicts match the JAX export.
+
+    In training mode the running statistics take the batch's mean and its
+    biased variance over (N, H, W), in float32, as flax's nn.BatchNorm
+    does (torch's own BatchNorm2d would take the unbiased variance);
+    `update_stats` False leaves them as they are (a recomputation under
+    activation checkpointing)."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
         super().__init__()
         self.eps, self.momentum = eps, momentum
+        self.update_stats = True
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
         self.register_buffer("running_var", torch.ones(features))
 
     def forward(self, x):
-        if self.training:
-            return F.batch_norm(x, self.running_mean, self.running_var,
-                                self.weight, self.bias, True, self.momentum,
-                                self.eps)
         dt = x.dtype
+        if self.training:
+            if self.update_stats:
+                with torch.no_grad():
+                    var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                                               correction=0)
+                    m = self.momentum
+                    self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                    self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+            return F.batch_norm(x, None, None, self.weight.to(dt),
+                                self.bias.to(dt), True, 0.0, self.eps)
         return F.batch_norm(x, self.running_mean.to(dt),
                             self.running_var.to(dt), self.weight.to(dt),
                             self.bias.to(dt), False, 0.0, self.eps)
@@ -131,6 +144,18 @@ class BatchNorm(nn.Module):
 
 def leaky_relu(x):
     return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: torch.Generator | None) -> torch.Tensor:
+    """Inverted dropout (flax nn.Dropout, F.dropout): keep each element
+    with probability 1 - rate, scaled by 1 / (1 - rate), the mask drawn
+    from `generator`, which must live on x's device."""
+    if generator is None:
+        raise RuntimeError("dropout in training mode needs an explicit "
+                           "generator (PitchClassNet.set_dropout_generator)")
+    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    return x * keep / (1.0 - rate)
 
 
 class ResBlock(nn.Module):
@@ -178,12 +203,15 @@ class DenseLayer(nn.Module):
             self.conv2 = ZeroPadConv(mid, growth, (k, k), generator,
                                      padding=(k // 2, k // 2), bias=False)
         self.drop_rate = drop_rate
+        self.generator = None   # set by PitchClassNet.set_dropout_generator
 
     def forward(self, x):
         y = self.conv1(leaky_relu(self.norm1(x)))
         y = self.conv2(F.relu(self.norm2(y)))
-        # F.dropout on the new features (models.py:516-517), training only
-        return F.dropout(y, self.drop_rate, self.training)
+        # dropout on the new features (models.py:516-517), training only
+        if not (self.training and self.drop_rate > 0):
+            return y
+        return dropout(y, self.drop_rate, self.generator)
 
 
 class DenseBlock(nn.Module):

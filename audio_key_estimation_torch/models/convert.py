@@ -10,6 +10,10 @@ tests/test_torch_model.py pins the two together exactly.
 `best_model.pt`: the export writes an equivariant conv as `X.weight` and
 the p2pc_conv pool's conv as `pool.weight`, the reference (and the port's
 modules) as `X.conv2d.weight` and `pool.conv.weight`; both load.
+
+`adam_state_from_jax` maps an optax Adam state (mu, nu, count) the same
+way, and `load_adam_state` puts it into a torch.optim.Adam, so a run can
+continue in the port from a JAX training state.
 """
 
 from __future__ import annotations
@@ -79,29 +83,81 @@ def state_dict_from_jax(variables: Mapping) -> dict:
     return sd
 
 
-def load_state_dict(model: torch.nn.Module, state_dict: Mapping) -> None:
-    """Load numpy arrays or tensors into `model`, strictly.
-
-    Accepts either naming of an equivariant conv (`X.conv2d.weight` or
-    `X.weight`) and of the p2pc_conv pool (`pool.conv.weight` or
-    `pool.weight`) and ignores `num_batches_tracked`; any other missing
-    or unused key raises KeyError.
-    """
-    used, sd, missing = set(), {}, []
-    for key in model.state_dict():
+def match_names(keys, state_dict: Mapping) -> dict:
+    """{key of `keys`: its key in state_dict}, accepting either naming of
+    an equivariant conv (`X.conv2d.weight` or `X.weight`) and of the
+    p2pc_conv pool (`pool.conv.weight` or `pool.weight`) and ignoring
+    `num_batches_tracked`; any other missing or unused key raises
+    KeyError."""
+    found, missing = {}, []
+    for key in keys:
         cands = [key, key.replace(".conv2d.", "."),
                  key.replace(".conv.", ".")]
-        found = next((c for c in cands if c in state_dict), None)
-        if found is None:
+        hit = next((c for c in cands if c in state_dict), None)
+        if hit is None:
             missing.append(key)
-            continue
-        used.add(found)
-        v = state_dict[found]
-        sd[key] = (v.detach().float() if isinstance(v, torch.Tensor)
-                   else torch.from_numpy(np.array(v, np.float32)))
+        else:
+            found[key] = hit
+    used = set(found.values())
     leftovers = sorted(k for k in state_dict if k not in used
                        and not k.endswith("num_batches_tracked"))
     if missing or leftovers:
         raise KeyError(f"state_dict mismatch: missing {missing[:8]}, "
                        f"unexpected {leftovers[:8]}")
-    model.load_state_dict(sd, strict=True)
+    return found
+
+
+def _tensor(v) -> torch.Tensor:
+    return (v.detach().float() if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.array(v, np.float32)))
+
+
+def load_state_dict(model: torch.nn.Module, state_dict: Mapping) -> None:
+    """Load numpy arrays or tensors into `model`, strictly (either naming
+    of an equivariant conv and of the p2pc_conv pool, see `match_names`)."""
+    names = match_names(model.state_dict(), state_dict)
+    model.load_state_dict({k: _tensor(state_dict[v])
+                           for k, v in names.items()}, strict=True)
+
+
+def _adam_state(tree):
+    """The first node of an optax state tree that carries Adam's
+    moments (a ScaleByAdamState: count, mu, nu)."""
+    if hasattr(tree, "mu") and hasattr(tree, "nu"):
+        return tree
+    if isinstance(tree, (tuple, list)):
+        for t in tree:
+            found = _adam_state(t)
+            if found is not None:
+                return found
+    return None
+
+
+def adam_state_from_jax(opt_state) -> dict:
+    """optax Adam state -> {torch parameter name: {"step", "exp_avg",
+    "exp_avg_sq"}} as numpy arrays, in torch's names and layouts (mu ->
+    exp_avg, nu -> exp_avg_sq, count -> step), for `load_adam_state`."""
+    adam = _adam_state(opt_state)
+    if adam is None:
+        raise ValueError("no Adam moments (mu, nu) in this optax state")
+    mu = state_dict_from_jax({"params": adam.mu})
+    nu = state_dict_from_jax({"params": adam.nu})
+    step = np.float32(np.asarray(adam.count))
+    return {k: {"step": step, "exp_avg": mu[k], "exp_avg_sq": nu[k]}
+            for k in mu}
+
+
+def load_adam_state(optimizer: torch.optim.Optimizer,
+                    model: torch.nn.Module, named_state: Mapping) -> None:
+    """Set `optimizer`'s per-parameter Adam state from
+    `adam_state_from_jax`'s dict (strictly, names resolved as in
+    load_state_dict)."""
+    params = dict(model.named_parameters())
+    names = match_names(params, named_state)
+    for key, src in names.items():
+        p = params[key]
+        st = named_state[src]
+        optimizer.state[p] = {
+            "step": torch.tensor(float(st["step"]), dtype=torch.float32),
+            "exp_avg": _tensor(st["exp_avg"]).to(p.device, p.dtype),
+            "exp_avg_sq": _tensor(st["exp_avg_sq"]).to(p.device, p.dtype)}

@@ -12,12 +12,20 @@ with torch's OIHW weights.
 
 `multi_scale` raises NotImplementedError naming its ROADMAP.md port queue
 item rather than silently running something else.
+
+Training: `cfg.remat` recomputes each trunk layer in the backward pass
+(torch.utils.checkpoint, the counterpart of the JAX package's nn.remat);
+dropout masks come from the generator `set_dropout_generator` gives.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
+
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import Config
 from ..ops import equivariant as eqv
@@ -25,8 +33,8 @@ from ..ops import pooling
 from ..ops.frontend import torch_dtype
 from ..ops.masked_pool import actual_output_length, masked_time_reduce
 from .blocks import (LEAKY_SLOPE, BatchNorm, CircularConv, ConvStack,
-                     EquivariantConv, OctaveConvPool, ThirdUpsample,
-                     ZeroPadConv, leaky_relu)
+                     DenseLayer, EquivariantConv, OctaveConvPool,
+                     ThirdUpsample, ZeroPadConv, leaky_relu)
 from .schedule import head_in_channels, layer_channels
 
 # Config fields the port does not serve yet -> their ROADMAP.md item
@@ -41,6 +49,40 @@ def check_supported(cfg: Config) -> None:
         if getattr(cfg, field):
             raise NotImplementedError(
                 f"Config.{field}=True is not ported yet: ROADMAP.md {item}")
+
+
+def _remat_contexts(layer: nn.Module, generator):
+    """torch.utils.checkpoint's (forward, recomputation) contexts for one
+    trunk layer: the recomputation in the backward pass draws the
+    forward's dropout masks again (the generator's state at the forward
+    is restored for it, and put back after) and leaves the BatchNorm
+    running statistics alone (the forward has updated them)."""
+    saved = {}
+
+    @contextlib.contextmanager
+    def forward():
+        if generator is not None:
+            saved["rng"] = generator.get_state()
+        yield
+
+    @contextlib.contextmanager
+    def recompute():
+        bns = [m for m in layer.modules() if isinstance(m, BatchNorm)]
+        for m in bns:
+            m.update_stats = False
+        state = None
+        if generator is not None:
+            state = generator.get_state()
+            generator.set_state(saved["rng"])
+        try:
+            yield
+        finally:
+            for m in bns:
+                m.update_stats = True
+            if state is not None:
+                generator.set_state(state)
+
+    return forward(), recompute()
 
 
 class PitchClassNetLayer(nn.Module):
@@ -189,14 +231,30 @@ class PitchClassNet(nn.Module):
         self.key_classifier = Head(cfg, final_ch, "key", generator)
         self.genre_classifier = (Head(cfg, final_ch, "genre", generator)
                                  if cfg.genre else None)
+        self.dropout_generator = None
+
+    def set_dropout_generator(self, generator: torch.Generator) -> None:
+        """Draw every dropout mask (the dense blocks' layers, training
+        mode) from `generator`, a torch.Generator on the model's device."""
+        self.dropout_generator = generator
+        for m in self.modules():
+            if isinstance(m, DenseLayer):
+                m.generator = generator
 
     def forward(self, mel, seq_length=None):
         c = self.cfg
         local = c.local
         p = mel.to(torch_dtype(c.dtype)).permute(0, 3, 1, 2)
         pc = None
+        remat = c.remat and self.training and torch.is_grad_enabled()
         for layer in self.model:
-            p, pc = layer(p, pc, local)
+            if remat:
+                p, pc = checkpoint(layer, p, pc, local, use_reentrant=False,
+                                   context_fn=functools.partial(
+                                       _remat_contexts, layer,
+                                       self.dropout_generator))
+            else:
+                p, pc = layer(p, pc, local)
         heads = [self.key_classifier, self.tonic_classifier]
         if self.genre_classifier is not None:
             heads.append(self.genre_classifier)

@@ -31,6 +31,7 @@ from .models.convert import load_state_dict
 from .models.pitchclassnet import PitchClassNet, check_supported
 from .ops.cqt import CQTParams, reference_hop
 from .ops.frontend import compute_cqt, use_cuda_kernels
+from .train import checkpoints as ckpt_lib
 from .utils.key_signatures import KEY_SIGNATURE_MAP
 
 NOTE_NAMES = ['C', 'C#', 'D', 'D#', 'E', 'F', 'F#', 'G', 'G#', 'A', 'A#', 'B']
@@ -90,6 +91,8 @@ class LocalPrediction:
 class KeyEstimator:
     """Batched inference over arbitrary audio.
 
+    >>> est = KeyEstimator.from_checkpoint(
+    ...     "Model_logs/lightning_logs/version_0")   # a port training run
     >>> est = KeyEstimator.from_torch_checkpoint("best_model.pt", cfg,
     ...                                          device="cuda")
     >>> est.predict_files(["song.wav"])  # -> [Prediction(key='A minor', ...)]
@@ -125,9 +128,11 @@ class KeyEstimator:
     # ------------------------------------------------------------------
     @classmethod
     def from_checkpoint(cls, run_dir: str, name: str = "best_model", **kw):
-        raise NotImplementedError(
-            "orbax checkpoints are not ported yet (ROADMAP.md port queue "
-            "item 6, train/); use from_torch_checkpoint")
+        """Load one of the port's run directories (train/checkpoints.py):
+        run_dir/name.pt with the Config of its config.json (the default
+        Config where there is none)."""
+        sd, cfg = ckpt_lib.load(run_dir, name)
+        return cls(cfg or Config(), sd, **kw)
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, cfg: Config, **kw):

@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving and dataset paths once on one CUDA card.
+"""Drive the PyTorch port's serving, dataset and training paths once on one
+CUDA card.
 
     python3 chip_smoke.py          # from the repository root, one GPU
 
@@ -55,14 +56,29 @@ non-zero):
              window_size mode (frames == 0) the same way; the feature
              cache written (`_cuda` sidecars) and read back with no
              launch; walls split into decode, pack + H2D, CQT and labels;
-  6 probes   the probe and experiment kernels (ops/probes_cuda.py and
+  6 train    training and evaluation at the default Config's full widths
+             on 64 training and 16 validation songs (120 s PCM16 at
+             22050 Hz, data/synthetic.py scale walks) imported through
+             kernels A and B: Trainer.fit for 3 epochs (batch 8 x
+             acc_grad 8, T = 601 in the 1024 bucket, fused_convstack on,
+             the epoch -1 evaluation, checkpoints), kernel C 3 times per
+             validation batch and never in a train step; one train step
+             held against the CPU's (loss, gradients, BatchNorm
+             statistics); the validation through kernel C held against
+             the plain path (keys, tonics, val_loss, MIREX categories);
+             one batch repeated for 10 steps (the loss must fall; step
+             wall, peak memory, the step's device split by
+             torch.profiler); the best checkpoint served back through
+             KeyEstimator.from_checkpoint against the trainer's own eval
+             outputs;
+  7 probes   the probe and experiment kernels (ops/probes_cuda.py and
              kernel B's stage split) against their plain versions at a
              small geometry and at the serving geometry, exact for the
              copies, and #8 replayed from a CUDA graph; then each probe
              entry point
              (audio_key_estimation_torch/scripts/) driven once at the
              serving geometry, every probe kernel's launch count checked;
-  7 result   the card line, the kernels JSON line, and the last line
+  8 result   the card line, the kernels JSON line, and the last line
              {"ok": true, "device": {...}}.
 Imports only torch, numpy and the port (no JAX).
 """
@@ -104,6 +120,10 @@ from audio_key_estimation_torch.scripts import (experiment_transpose_kernel,
                                                 probe_pallas_primitives)
 from audio_key_estimation_torch.scripts.harness import (card_line,
                                                         graph_ms, time_ms)
+from audio_key_estimation_torch.train import trainer as T
+from audio_key_estimation_torch.train.loss import compute_loss
+from audio_key_estimation_torch.train.metrics import mirex_categories
+from audio_key_estimation_torch.utils.key_signatures import KEY_SIGNATURE_MAP
 
 SR = 22050
 CLIP_SECONDS = 120
@@ -1438,7 +1458,433 @@ def run_dataset(td: str, device) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: the probe and experiment kernels
+# phase 6: training and evaluation
+# ---------------------------------------------------------------------------
+
+TRAIN_SONGS, VAL_SONGS = 64, 16
+
+
+def build_train_corpora(root: str) -> dict:
+    """64 training and 16 validation songs, 120 s PCM16 at 22050 Hz in
+    the GiantSteps layout, written by data/synthetic.py as scale walks
+    (the audio determines key and tonic). Returns name -> root."""
+    genres = loaders.GiantStepsKeyLoader.GENRES
+    out = {}
+    for name, n, shift, offset in (("train", TRAIN_SONGS, 0, 0),
+                                   ("val", VAL_SONGS, 3, 1000)):
+        songs = [(f"{name}_{i:02d}", 0.0, GS_KEYS[(5 * i + shift) % 24],
+                  genres[i % len(genres)]) for i in range(n)]
+        out[name] = synthetic.make_giantsteps_corpus(
+            os.path.join(root, name), songs, seconds=CLIP_SECONDS,
+            scale_audio=True, seed_offset=offset)
+    return out
+
+
+def scale_ratio(got: dict, want: dict, rtol: float, floor: float) -> dict:
+    """How far each tensor of `got` lies from `want` against its bar: rtol
+    of that tensor's largest magnitude plus `floor` of the largest
+    magnitude over all of them (a gradient that cancels to ~0, as a conv
+    bias's ahead of a training-mode BatchNorm does, keeps the model's
+    rounding floor). Returns the worst: its ratio (<= 1 passes), name,
+    |d|, its tensor's largest magnitude and the largest over all."""
+    top = max(float(v.abs().max()) for v in want.values())
+    worst = {"ratio": -1.0}
+    for k, v in want.items():
+        d = float((got[k].float() - v.float()).abs().max())
+        scale = float(v.abs().max())
+        ratio = d / (rtol * scale + floor * top)
+        if ratio > worst["ratio"]:
+            worst = {"ratio": ratio, "name": k, "d": d, "scale": scale,
+                     "top": top}
+    return worst
+
+
+def step_against_cpu(cfg: Config, batch: dict, device) -> dict:
+    """One train step (acc_grad micro-batches, one Adam update, drop 0)
+    from the same weights on the same batch, on the card and on the CPU
+    (the plain PyTorch step: another device and library stack). The
+    card's loss within rtol 1e-4 of the CPU's; every gradient within 1e-3
+    of its tensor's largest magnitude plus 1e-3 of the model's largest;
+    every BatchNorm's updated running mean within 1e-4 of its running
+    standard deviation and running variance within rtol 1e-4. Bars: each
+    gradient and batch statistic sums 8 x 8 x 288 x 1024 = 18.9 M float32
+    terms per channel in another order and through other convolution
+    algorithms (TF32 off). Where such a sum cancels (a conv ahead of a
+    training-mode BatchNorm: its bias's true gradient is 0, its weight's
+    is orthogonal to the weight), what is left is rounding of the terms'
+    size, growing as the square root of their count: eps * sqrt(18.9 M) = 2.6e-4 here, against 8e-6 at the CPU
+    tests' 18 K terms, whose floor is 1e-5; the floor here keeps the same
+    ~4x room, and the relative part follows it."""
+    card = T.create_train_state(cfg, 1, device)
+    cpu = T.create_train_state(cfg, 1, "cpu")
+    cpu.model.load_state_dict(card.model.state_dict())
+    out = {}
+    for name, st in (("card", card), ("cpu", cpu)):
+        dev = next(st.model.parameters()).device
+        step = T.make_train_step(cfg, 1, seed=0)
+        tb = T.to_device(batch, dev)
+        if name == "card":
+            m, launches, wall = counted(lambda: step(st, tb))
+            if any(launches.values()):
+                raise AssertionError(f"train step launched {launches}")
+        else:
+            t0 = time.perf_counter()
+            m = step(st, tb)
+            wall = time.perf_counter() - t0
+        out[name] = {"loss": float(m["loss"]), "wall": wall,
+                     "grads": {k: p.grad.detach().cpu() for k, p in
+                               st.model.named_parameters()},
+                     "bufs": {k: b.detach().cpu() for k, b in
+                              st.model.named_buffers()}}
+    a, b = out["card"], out["cpu"]
+    res = {"loss": a["loss"], "cpu_loss": b["loss"],
+           "loss_rel": abs(a["loss"] - b["loss"]) / abs(b["loss"]),
+           "grad": scale_ratio(a["grads"], b["grads"], 1e-3, 1e-3),
+           "card_s": a["wall"], "cpu_s": b["wall"]}
+    res["mean_ratio"] = max(
+        float(((a["bufs"][k] - v).abs() / (1e-4 * b["bufs"][k.replace(
+            "running_mean", "running_var")].sqrt())).max())
+        for k, v in b["bufs"].items() if k.endswith("running_mean"))
+    res["var_rel"] = max(float(((a["bufs"][k] - v).abs() / v).max())
+                         for k, v in b["bufs"].items()
+                         if k.endswith("running_var"))
+    if not (np.isfinite(a["loss"]) and res["loss_rel"] <= 1e-4
+            and res["grad"]["ratio"] <= 1 and res["mean_ratio"] <= 1
+            and res["var_rel"] <= 1e-4):
+        raise AssertionError(f"train step, card vs CPU: {res}")
+    return res
+
+
+def eval_outputs(state, cfg: Config, ds) -> tuple:
+    """Per-sample (key, tonic) of the eval-mode model over
+    ds.batches(cfg.batch_size), the repeat-padded rows dropped, with the
+    labels; rows follow ds.items. Counted: the launches of these
+    forwards."""
+    device = next(state.model.parameters()).device
+
+    def run():
+        rows = {k: [] for k in ("key", "tonic", "key_labels",
+                                "tonic_labels", "key_signature_id")}
+        state.model.eval()
+        for b in ds.batches(cfg.batch_size):
+            valid = torch.from_numpy(b.pop("valid"))
+            tb = T.to_device(b, device)
+            with torch.inference_mode():
+                key, tonic = T.forward(state.model, cfg, tb)[:2]
+            for k, v in (("key", key), ("tonic", tonic)) + tuple(
+                    (n, tb[n]) for n in ("key_labels", "tonic_labels",
+                                         "key_signature_id")):
+                rows[k].append(v.cpu()[valid])
+        return {k: torch.cat(v) for k, v in rows.items()}
+    return counted(run)
+
+
+def loss_bar(cfg: Config, out: dict) -> float:
+    """First-order bound on the validation loss's change when every key
+    probability moves by up to 3e-2 and every tonic logit by up to 3e-2 of
+    their largest magnitude (the agreement bars): sum |dL/dkey| * 3e-2 +
+    sum |dL/dtonic| * 3e-2 * max|tonic|, L the mean over songs (what
+    evaluate's valid-weighted batch losses make), at the plain path's
+    outputs."""
+    key = out["key"].double().requires_grad_()
+    tonic = out["tonic"].double().requires_grad_()
+    loss, _ = compute_loss(cfg, (key, tonic),
+                           {k: out[k].double() for k in
+                            ("key_labels", "tonic_labels")})
+    loss.backward()
+    return float(key.grad.abs().sum() * 3e-2 + tonic.grad.abs().sum()
+                 * 3e-2 * out["tonic"].abs().max())
+
+
+def top2_margin(key: torch.Tensor) -> float:
+    """Cosine of the key output to its nearest KEY_SIGNATURE_MAP row less
+    that to the second nearest: how close the named key is to flipping."""
+    ksm = torch.as_tensor(KEY_SIGNATURE_MAP)
+    sims = F.cosine_similarity(key[None].float(), ksm, dim=1)
+    top = torch.topk(sims, 2).values
+    return float(top[0] - top[1])
+
+
+def check_validation(state, cfg: Config, val, device,
+                     min_spread: float = 0.0) -> dict:
+    """The trained state's validation through kernel C against the plain
+    path (the same weights in a model with fused_convstack=False) on the
+    card: 3 C launches per batch and none on the plain path; per-song keys
+    and tonics at the agreement bars (3e-2, tonic 3e-2 of its peak); the
+    validation loss within loss_bar; songs whose MIREX categories differ
+    named with their top-2 cosine margin and key |d|; evaluate's wall
+    with and without kernel C. The keys' spread across songs (the largest
+    range of one output) must reach min_spread, or the agreement would
+    not show an error upstream (phase 4's `agreement`)."""
+    plain_cfg = cfg.replace(fused_convstack=False)
+    plain = T.create_train_state(plain_cfg, 0, device)
+    plain.model.load_state_dict(state.model.state_dict())
+    n_batches = -(-len(val) // cfg.batch_size)
+    got, launches, _ = eval_outputs(state, cfg, val)
+    ref, launches_plain, _ = eval_outputs(plain, plain_cfg, val)
+    if launches["conv7_layer"] != 3 * n_batches \
+            or launches_plain["conv7_layer"] != 0:
+        raise AssertionError(f"validation launches {launches} (plain "
+                             f"{launches_plain}), want C 3 per batch")
+    res = {"launches": launches, "batches": n_batches,
+           "key_spread": float((ref["key"].max(0).values
+                                - ref["key"].min(0).values).max()),
+           "key_d": float((got["key"] - ref["key"]).abs().max()),
+           "tonic_rel_d": float((got["tonic"] - ref["tonic"]).abs().max()
+                                / ref["tonic"].abs().max())}
+    walls = {}
+    for name, st, c in (("kernel C", state, cfg),
+                        ("plain", plain, plain_cfg),
+                        ("kernel C again", state, cfg)):
+        val_metrics, _, wall = counted(lambda: T.evaluate(
+            T.make_eval_step(c), st, val, c.batch_size))
+        walls[name] = wall * 1e3
+        res[name] = val_metrics
+    res["walls_ms"] = walls
+    res["loss_d"] = abs(res["kernel C"]["loss"] - res["plain"]["loss"])
+    res["loss_bar"] = loss_bar(cfg, ref)
+    cats = [mirex_categories(o["key_labels"], o["key"], o["tonic_labels"],
+                             o["tonic"], o["key_signature_id"])
+            for o in (got, ref)]
+    differ = sorted({int(i) for k in cats[0] for i in
+                     torch.nonzero(cats[0][k] != cats[1][k]).flatten()})
+    res["differ"] = [
+        (os.path.basename(val.items[i]["file"]), top2_margin(ref["key"][i]),
+         float((got["key"][i] - ref["key"][i]).abs().max()))
+        for i in differ]
+    if res["key_d"] >= 3e-2 or res["tonic_rel_d"] >= 3e-2 \
+            or res["key_spread"] < min_spread \
+            or res["loss_d"] > res["loss_bar"] \
+            or not np.isfinite(res["kernel C"]["loss"]):
+        raise AssertionError(f"validation, kernel C vs plain: {res}")
+    return res
+
+
+def validation_text(name: str, v: dict) -> str:
+    return (
+        f"[6 train] validation of {name}, through kernel C vs the plain "
+        f"path ({v['batches']} batches, launches C "
+        f"{v['launches']['conv7_layer']}, plain 0): key |d| {v['key_d']:.3g}"
+        f" (bar 3e-2; the keys spread {v['key_spread']:.3f} across songs), "
+        f"tonic |d| {v['tonic_rel_d']:.3g} of its peak (bar 3e-2); val_loss "
+        f"{v['kernel C']['loss']:.6f} vs {v['plain']['loss']:.6f}, |d| "
+        f"{v['loss_d']:.3g} (bar {v['loss_bar']:.3g}, first order at the "
+        f"agreement bars); val_mirex {v['kernel C']['mirex']:.4f} vs "
+        f"{v['plain']['mirex']:.4f}; MIREX categories differ for "
+        + (", ".join(f"{f} (top-2 cosine margin {m:.3g}, key |d| {d:.3g})"
+                     for f, m, d in v["differ"]) or "no song")
+        + "; evaluate wall " + ", ".join(
+            f"{k} {w:.1f} ms" for k, w in v["walls_ms"].items())
+        + f" ({card_line()})")
+
+
+def train_split(state, cfg: Config, batch) -> dict:
+    """One train step under torch.profiler: the device time of the step
+    (kernels and copies) and the device time under the step's cuDNN
+    forward convolutions, their backward, BatchNorm (cuDNN's forward and
+    backward), the running statistics' update and the optimizer (the
+    gradient average and Adam's multi-tensor kernels), from key_averages
+    (each operator's device time with its children's; only operators
+    that do not nest in one another are summed)."""
+    step = T.make_train_step(cfg, 1, seed=0)
+    step(state, batch)
+    torch.cuda.synchronize()
+    act = torch.profiler.ProfilerActivity
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        step(state, batch)
+        torch.cuda.synchronize()
+    total = sum(e.time_range.elapsed_us() for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    groups = {
+        "conv forward": ("aten::cudnn_convolution",
+                         "aten::cudnn_convolution_transpose"),
+        "conv backward": ("aten::convolution_backward",),
+        "BatchNorm": ("aten::cudnn_batch_norm",
+                      "aten::cudnn_batch_norm_backward",
+                      "aten::native_batch_norm",
+                      "aten::native_batch_norm_backward"),
+        "BatchNorm running statistics": ("aten::var_mean",),
+        # the gradient average and Adam's update: multi-tensor kernels
+        "optimizer": ("aten::_foreach_",),
+    }
+    rows = {a.key: getattr(a, "device_time_total", 0.0)
+            for a in prof.key_averages()}
+    split = {g: sum(t for k, t in rows.items()
+                    if any(k == n or (n.endswith("_") and k.startswith(n))
+                           for n in names)) / 1e3
+             for g, names in groups.items()}
+    split["other"] = total - sum(split.values())
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[e.name] = kernels.get(e.name, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
+    if total <= 0:
+        raise AssertionError("profiler saw no device time in a train step")
+    return {"total_ms": total, "split": split, "top": top}
+
+
+def run_train(td: str, device) -> dict:
+    """Training and evaluation on the card at the default Config's full
+    widths (2 layers, 3 convs, 4 filters, kernel 7, 288 rows; batch 8 x
+    acc_grad 8 = 64 songs a step; T = 601 in the 1024 bucket),
+    fused_convstack on, 3 epochs with the epoch -1 evaluation, checkpoints
+    in a run directory: features imported by KeyDataset through kernels A
+    and B (A 7, B 1 per group); Trainer.fit launching kernel C 3 times per
+    validation batch and never in a train step; one step held against the
+    CPU; the validation through kernel C held against the plain path; one
+    batch repeated for 10 steps (the loss must fall; step wall, peak
+    memory, the step's device split); the best checkpoint served back
+    through KeyEstimator.from_checkpoint.predict_files against the
+    trainer's own eval outputs of that state."""
+    cfg = Config(fused_convstack=True, epochs=3)
+    t0 = time.perf_counter()
+    roots = build_train_corpora(td)
+    log(f"[6 train] corpora written with data/synthetic.py in "
+        f"{time.perf_counter() - t0:.1f} s: {TRAIN_SONGS} training and "
+        f"{VAL_SONGS} validation songs, {CLIP_SECONDS} s PCM16 at {SR} Hz "
+        f"(scale walks)")
+    sets, imports = {}, {}
+    for name in ("train", "val"):
+        ds = KeyDataset(False, cfg, blacklist_path="", use_cache=False,
+                        device=device)
+        imports[name] = timed_import(ds, loaders.GiantStepsKeyLoader(
+            roots[name]))
+        check_dataset_launches(f"train phase {name}", imports[name], True,
+                               cfg.octaves)
+        sets[name] = ds
+        t_max = max(it["mel"].shape[-1] for it in ds.items)
+        if t_max != 1 + CLIP_SECONDS * cfg.frames:
+            raise AssertionError(f"{name}: {t_max} frames")
+    bucket = next(b for b in cfg.bucket_sizes if b >= t_max)
+    train, val = sets["train"], sets["val"]
+    import_launches = {k: sum(r["launches"][k] for r in imports.values())
+                       for k in imports["train"]["launches"]}
+    log(f"[6 train] import: " + "; ".join(
+        f"{n} {len(sets[n])} songs in {len(r['calls'])} groups, "
+        f"{r['wall'] * 1e3:.1f} ms ({split_text(r)} ms), launches A "
+        f"{r['launches']['cascade_pad']} B {r['launches']['octave_response']}"
+        for n, r in imports.items()))
+
+    run_dir = os.path.join(td, "run")
+    tr = T.Trainer(cfg, train, val, log_dir=run_dir, device=device)
+    (state, hist), fit_launches, fit_wall = counted(
+        lambda: tr.fit(seed=0, eval_at_start=True))
+    n_batches = -(-len(val) // cfg.batch_size)
+    want = {"cascade_pad": 0, "octave_response": 0,
+            "conv7_layer": 3 * n_batches * len(hist)}
+    steps = cfg.epochs * (len(train) // (cfg.batch_size * cfg.acc_grad))
+    if fit_launches != want or state.step != steps:
+        raise AssertionError(f"fit: launches {fit_launches} (want {want}), "
+                             f"{state.step} steps (want {steps})")
+    if not all(np.isfinite(r["val_loss"]) for r in hist) or not all(
+            np.isfinite(r["train_loss"]) for r in hist[1:]):
+        raise AssertionError(f"fit: non-finite losses {hist}")
+    if not {"best_model.pt", "last_state.pt", "config.json"} <= set(
+            os.listdir(run_dir)):
+        raise AssertionError(f"run directory {os.listdir(run_dir)}")
+    log(f"[6 train] Trainer.fit: {len(hist) - 1} epochs of "
+        f"{steps // cfg.epochs} step(s) ({cfg.batch_size} x {cfg.acc_grad} "
+        f"songs, T {t_max} in the {bucket} bucket) in {fit_wall:.2f} s, "
+        f"launches "
+        f"A {fit_launches['cascade_pad']} B {fit_launches['octave_response']}"
+        f" C {fit_launches['conv7_layer']} (3 per validation batch x "
+        f"{n_batches} batches x {len(hist)} evaluations, 0 per train step); "
+        + "; ".join(f"epoch {r['epoch']}: train_loss {r['train_loss']:.4f} "
+                    f"val_loss {r['val_loss']:.4f} val_mirex "
+                    f"{r['val_mirex']:.4f} ({r['epoch_seconds']:.2f} s)"
+                    for r in hist))
+
+    first = next(train.batches(cfg.batch_size * cfg.acc_grad, shuffle=True,
+                               seed=0, drop_last=True))
+    first.pop("valid")
+    first = {k: np.reshape(v, (cfg.acc_grad, cfg.batch_size) + v.shape[1:])
+             for k, v in first.items()}
+    cpu = step_against_cpu(cfg, first, device)
+    log(f"[6 train] one step, card vs CPU (same weights and batch, drop 0,"
+        f" TF32 {torch.backends.cudnn.allow_tf32}): loss {cpu['loss']:.6f} "
+        f"vs {cpu['cpu_loss']:.6f} (rel {cpu['loss_rel']:.3g}, bar 1e-4); "
+        f"gradients at {cpu['grad']['ratio']:.3g} of their bar (1e-3 of the "
+        f"tensor's largest + 1e-3 of the model's), the worst "
+        f"{cpu['grad']['name']} |d| {cpu['grad']['d']:.3g} (its largest "
+        f"{cpu['grad']['scale']:.3g}, the model's {cpu['grad']['top']:.3g});"
+        f" running means at "
+        f"{cpu['mean_ratio']:.3g} of theirs (1e-4 of the running std), "
+        f"running variances rel {cpu['var_rel']:.3g} (bar 1e-4); the step "
+        f"{cpu['card_s'] * 1e3:.1f} ms on the card, {cpu['cpu_s']:.1f} s on "
+        f"the CPU")
+
+    v = check_validation(state, cfg, val, device)
+    log(validation_text("the state Trainer.fit ended with", v))
+
+    fresh = T.create_train_state(cfg, 2, device)
+    step = T.make_train_step(cfg, 1, seed=0)
+    tb = T.to_device(first, device)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [], []
+    for _ in range(10):
+        t0 = time.perf_counter()
+        losses.append(float(step(fresh, tb)["loss"]))
+        walls.append(time.perf_counter() - t0)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"10 steps on one batch: losses {losses}")
+    med = float(np.median(walls))
+    split = train_split(fresh, cfg, tb)
+    # after 3 updates the fit state's keys may barely differ between songs
+    # (its BatchNorm statistics are still mostly the initial ones); this
+    # state's must answer to the audio, so that its agreement means more
+    v2 = check_validation(fresh, cfg, val, device, min_spread=0.05)
+    log(f"[6 train] one batch of {cfg.batch_size * cfg.acc_grad} songs "
+        f"repeated for 10 steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
+        f"(" + ", ".join(f"{x:.4f}" for x in losses) + "); step wall "
+        f"median {med * 1e3:.1f} ms (min {min(walls) * 1e3:.1f}, max "
+        f"{max(walls) * 1e3:.1f}) = {cfg.batch_size * cfg.acc_grad / med:.1f}"
+        f" songs/s; peak memory {peak / 2**20:.1f} MiB "
+        f"(max_memory_allocated); ({card_line()})")
+    log(f"[6 train] one step on the card (torch.profiler, TF32 "
+        f"{torch.backends.cudnn.allow_tf32}): {split['total_ms']:.3f} ms "
+        f"device; " + ", ".join(f"{k} {v_:.3f} ms"
+                                for k, v_ in split["split"].items())
+        + "; largest kernels: " + "; ".join(
+            f"{k[:60]} {t:.3f} ms" for k, t in split["top"]))
+    log(validation_text("the state after one batch's 11 steps", v2))
+
+    est = KeyEstimator.from_checkpoint(run_dir, device=device)
+    paths = [it["file"] for it in val.items]
+    est.predict_files(paths)          # warm-up
+    preds, serve_launches, serve_wall = counted(
+        lambda: est.predict_files(paths, return_raw=True))
+    if serve_launches != expected_launches(est) \
+            or serve_launches["conv7_layer"] != 3:
+        raise AssertionError(f"checkpoint served: launches {serve_launches}")
+    best = T.create_train_state(cfg, 0, device)
+    best.model.load_state_dict(torch.load(
+        os.path.join(run_dir, "best_model.pt"), weights_only=True))
+    own, _, _ = eval_outputs(best, cfg, val)
+    served_key = torch.from_numpy(np.stack([q.key_probs for q in preds]))
+    serve_d = float((served_key - own["key"]).abs().max())
+    if serve_d >= 3e-2 or not torch.isfinite(served_key).all():
+        raise AssertionError(f"checkpoint served: key |d| {serve_d}")
+    log(f"[6 train] best checkpoint served back "
+        f"(KeyEstimator.from_checkpoint, predict_files on the "
+        f"{len(paths)} validation WAVs): launches A "
+        f"{serve_launches['cascade_pad']} B "
+        f"{serve_launches['octave_response']} C "
+        f"{serve_launches['conv7_layer']}; key |d| against the trainer's "
+        f"eval outputs of that state {serve_d:.3g} (bar 3e-2); e.g. "
+        f"{preds[0].key!r}; wall {serve_wall * 1e3:.1f} ms")
+    return {"import_launches": import_launches,
+            "fit_launches": fit_launches,
+            "val_launches": {k: v["launches"][k] + v2["launches"][k]
+                             for k in v["launches"]},
+            "serve_launches": serve_launches}
+
+
+# ---------------------------------------------------------------------------
+# phase 7: the probe and experiment kernels
 # ---------------------------------------------------------------------------
 
 def check_exact(name, got, ref) -> float:
@@ -1477,7 +1923,7 @@ def check_window_copy(device) -> dict:
                 # the windows the variant stages, and its output
                 res["bound_ms"] += bound(nbytes + len(starts) * 4)[
                     "bound_ms"]
-    log("[6 probes] #5 window_copy: 6 variants x 2 geometries exact; at "
+    log("[7 probes] #5 window_copy: 6 variants x 2 geometries exact; at "
         "serving geometry " + ", ".join(
             f"{v} {r:.0f} GB/s" for v, r in res["rates"].items()))
     return res
@@ -1544,7 +1990,7 @@ def check_stages(y: torch.Tensor, p: C.CQTParams, device) -> dict:
             return lambda: [fn(*a, stage) for a in octs]
         res["ms"][stage] = time_ms(run(K.octave_response_stage))
         res["plain_ms"][stage] = time_ms(run(K.octave_response_stage_plain))
-    log("[6 probes] #6 kernel B stages, 8 octaves at serving geometry: "
+    log("[7 probes] #6 kernel B stages, 8 octaves at serving geometry: "
         + ", ".join(f"{s} {res['ms'][s]:.4f} ms (plain "
                     f"{res['plain_ms'][s]:.4f})" for s in K.STAGES)
         + f"; max|d| gemm/full {res['err']:.3g}; full == kernel B; bound "
@@ -1569,7 +2015,7 @@ def check_transpose_pad(y: torch.Tensor) -> dict:
     res.update(bound((y.shape[1] + lfull) * y.shape[0] * y.element_size()))
     res["ms"] = time_ms(lambda: PC.transpose_pad(y, 256, lfull))
     res["plain_ms"] = time_ms(lambda: PC.transpose_pad_plain(y, 256, lfull))
-    log(f"[6 probes] #7 transpose_pad: int16 and f32 exact; serving int16 "
+    log(f"[7 probes] #7 transpose_pad: int16 and f32 exact; serving int16 "
         f"{res['ms']:.4f} ms vs plain {res['plain_ms']:.4f} ms")
     return res
 
@@ -1607,7 +2053,7 @@ def check_launch_and_primitives(device) -> dict:
         res["prim_bound_ms"] += bound(
             xi.numel() * xi.element_size()
             + int(np.prod(out_shape)) * 4)["bound_ms"]
-    log(f"[6 probes] #8 launch_probe grid 201: {res['launch_ms']:.4f} ms vs "
+    log(f"[7 probes] #8 launch_probe grid 201: {res['launch_ms']:.4f} ms vs "
         f"plain {res['launch_plain_ms']:.4f} ms; CUDA graph of "
         f"{probe_pallas_overhead.BURST} launches replayed exactly, "
         f"{res['graph_ms']:.5f} ms per launch; #9 six primitives exact, "
@@ -1638,11 +2084,11 @@ def drive_probes() -> dict:
         raise AssertionError(f"probe_pallas_primitives FAIL: {errs}")
     if not all(launches.values()):
         raise AssertionError(f"a probe entry point ran no kernel: {launches}")
-    log(f"[6 probes] entry points driven; launches {launches}")
-    log("[6 probes] #8 per launch (ms): " + ", ".join(
+    log(f"[7 probes] entry points driven; launches {launches}")
+    log("[7 probes] #8 per launch (ms): " + ", ".join(
         f"{k} {v:.5f}" for k, v in floor.items()
         if isinstance(k, str) and k.startswith("burst")))
-    log("[6 probes] #8 host per call (us, one process): " + ", ".join(
+    log("[7 probes] #8 host per call (us, one process): " + ", ".join(
         f"{k[6:]} {v:.3f}" for k, v in floor.items()
         if isinstance(k, str) and k.startswith("host, ")))
     return launches
@@ -1696,6 +2142,8 @@ def main() -> int:
         mixed = serve_mixed(waves, td, device)
     with tempfile.TemporaryDirectory() as td:
         data = run_dataset(td, device)
+    with tempfile.TemporaryDirectory() as td:
+        trained = run_train(td, device)
 
     y = torch.from_numpy(np.stack([pcm16(w) for w in waves])).to(device)
     probe = {"window": check_window_copy(device),
@@ -1718,7 +2166,15 @@ def main() -> int:
     for k in data["launches"]:
         by_path[k] |= {"dataset": data["launches"][k],
                        "dataset frames=0": data["window_launches"][k],
-                       "dataset cache reread": data["cache_launches"][k]}
+                       "dataset cache reread": data["cache_launches"][k],
+                       "train import": trained["import_launches"][k]}
+    # the training phase: Trainer.fit (train steps and every validation),
+    # the kernel C validation check, the checkpoint served back
+    for k in n:
+        by_path[k] |= {"train fit": trained["fit_launches"][k],
+                       "train validation": trained["val_launches"][k],
+                       "train checkpoint served":
+                           trained["serve_launches"][k]}
     # the largest |d| of the served batches' own CQT and kernel C stacks
     # against their plain versions, over every served path
     served_cqt_d = max(r["held"]["cqt_d"] for r in served_by.values())
@@ -1811,7 +2267,7 @@ def main() -> int:
         card = (f", card {k['card_ms']:.4f} ms "
                 f"({k['bound_ms'] / k['card_ms']:.1%})" if "card_ms" in k
                 else "")
-        log(f"[7 result] {k['name']}: {k['ms']:.4f} ms eager, bound "
+        log(f"[8 result] {k['name']}: {k['ms']:.4f} ms eager, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}, "
             f"{k['bound_ms'] / k['ms']:.1%}){card}, plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}")

@@ -102,6 +102,29 @@ def test_port_serves_without_jax(tmp_path):
     assert tpu <= ALLOWED_TPU_MODULES, tpu - ALLOWED_TPU_MODULES
 
 
+def test_training_entry_points_import_no_jax():
+    """Importing the train, eval and equivariance CLIs (and with them the
+    trainer, loss, metrics, optimizer, checkpoints, prefetch and logging)
+    in a fresh interpreter loads no jax, flax, optax or orbax module and
+    no module of the JAX package."""
+    code = textwrap.dedent("""
+        import json, sys
+        from audio_key_estimation_torch.cli import equivariance, eval, train
+        from audio_key_estimation_torch.train import (checkpoints, loss,
+                                                      metrics, optim, trainer)
+        print(json.dumps(sorted(sys.modules)))
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    mods = json.loads(res.stdout.strip().splitlines()[-1])
+    assert "audio_key_estimation_torch.train.trainer" in mods
+    bad = [m for m in mods if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "optax", "orbax", "audio_key_estimation_tpu")]
+    assert not bad, bad
+
+
 def _imported_modules(path: str) -> set:
     """Every module an import statement of the file names."""
     mods = set()
@@ -126,9 +149,11 @@ def _port_sources() -> list:
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_port_sources_import_no_jax_package(path):
     """No import statement of the port or of chip_smoke.py names the JAX
-    package, jax or flax (comments and strings may name a counterpart)."""
+    package, jax, flax, optax or orbax (comments and strings may name a
+    counterpart)."""
     bad = {m for m in _imported_modules(path)
-           if m.split(".")[0] in ("audio_key_estimation_tpu", "jax", "flax")}
+           if m.split(".")[0] in ("audio_key_estimation_tpu", "jax", "jaxlib",
+                                  "flax", "optax", "orbax")}
     assert not bad, bad
 
 
@@ -222,8 +247,9 @@ def test_dataset_refuses_cuda_without_cuda(entry, tmp_path):
 
 COPIES = [f"data/{n}" for n in (
     "mp3.py", "_mp3_tables.py", "_mp3_tables_lsf.py", "_mp3_synth.py",
-    "_mp3_bands_lsf.py", "loaders.py", "synthetic.py", "short_songs.txt")] \
-    + ["utils/labels.py"] + [f"native/{n}" for n in (
+    "_mp3_bands_lsf.py", "loaders.py", "synthetic.py", "short_songs.txt",
+    "pipeline.py")] \
+    + ["utils/labels.py", "utils/logging.py"] + [f"native/{n}" for n in (
         "akx_native.cpp", "akx_mp3.cpp", "akx_decoded.h", "akx_mp3_tables.h")]
 
 

@@ -151,9 +151,15 @@ def test_cli_defaults_to_cuda(tmp_path):
 
 
 def test_unported_entry_points_raise(tmp_path):
+    """What the port cannot serve raises, naming why: a JAX run
+    directory (orbax best_model/) names its conversion, a multi_scale
+    model its ROADMAP item."""
     from audio_key_estimation_torch.models import PitchClassNet
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    (tmp_path / "best_model").mkdir()
+    with pytest.raises(ValueError, match="state_dict_from_jax"):
         KeyEstimator.from_checkpoint(str(tmp_path))
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        KeyEstimator(CFG.replace(multi_scale=True), {}, device="cpu")
     with pytest.raises(ValueError, match="CUDA"):
         KeyEstimator(CFG.replace(use_pallas_cqt="on"),
                      PitchClassNet(CFG).state_dict(), device="cpu")
