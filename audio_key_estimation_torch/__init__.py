@@ -20,7 +20,8 @@ Layering (bottom -> top), module names mirror the JAX package:
   ops/        CQT front-end (plain PyTorch + cqt_cuda kernels A/B),
               equivariant convs, pooling, masked pooling, the fused
               ConvStack layer (convstack_cuda kernel C)
-  models/     nn.Modules: PitchClassNet (every variant but multi_scale),
+  models/     nn.Modules: PitchClassNet (every variant), the two-scale
+              ensemble PitchClassNetMulti (build_model picks the class),
               blocks, channel schedule, JAX variables and Adam state ->
               state_dict and torch.optim state conversion
   native/     the host C++ audio library (WAV, MP3, decode pool, batch

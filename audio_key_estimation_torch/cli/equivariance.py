@@ -25,7 +25,7 @@ import torch
 from ..config import add_config_args, config_from_args
 from ..data.audio_io import decode_audio
 from ..data.synthetic import custom_cqt
-from ..models import PitchClassNet
+from ..models import build_model
 from ..models.convert import load_state_dict
 from ..ops.cqt import CQTParams, reference_hop
 from ..ops.frontend import compute_cqt, use_cuda_kernels
@@ -62,8 +62,10 @@ def shift_and_stack(cfg, mel: np.ndarray, seed: int = 0,
     # pad one octave of zeros top+bottom (the guard band)
     guard = np.zeros((36, mel.shape[1]), mel.dtype)
     mel = np.concatenate([guard, mel, guard], axis=0)
-    cfg = cfg.replace(octaves=mel.shape[0] // 36)
-    model = PitchClassNet(cfg, generator=torch.Generator().manual_seed(seed))
+    # one PitchClassNet on the 36-bin CQT, whatever multi_scale says: the
+    # JAX CLI builds PitchClassNet(cfg), which has no second tower
+    cfg = cfg.replace(octaves=mel.shape[0] // 36, multi_scale=False)
+    model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
     if state_dict is not None:
         load_state_dict(model, state_dict)
     model.to(device).eval()

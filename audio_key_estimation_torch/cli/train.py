@@ -20,7 +20,6 @@ import argparse
 import os
 
 from ..config import add_config_args, config_from_args
-from ..models.pitchclassnet import check_supported
 from ..train import checkpoints as ckpt_lib
 from ..train.trainer import Trainer, evaluate, resolve_device
 from ..utils.logging import MetricsLogger, write_tuning_results
@@ -46,7 +45,6 @@ def main(argv=None):
     if cfg.debug:
         cfg = cfg.replace(batch_size=2, acc_grad=1)  # train_model.py:88-91
     device = resolve_device(args.device)
-    check_supported(cfg)
 
     train_data, val_data = build_train_val(cfg, device=device)
     runs = os.path.join(cfg.log_dir, "lightning_logs")

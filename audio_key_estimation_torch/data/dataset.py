@@ -24,7 +24,7 @@ import torch
 
 from ..config import Config
 from ..ops.cqt import CQTParams, reference_hop
-from ..ops.frontend import compute_cqt, use_cuda_kernels
+from ..ops.frontend import compute_cqt, feature_bins, use_cuda_kernels
 from ..utils import labels as L
 from . import audio_io
 from .loaders import DatasetLoader
@@ -198,9 +198,7 @@ class KeyDataset:
             max_len = max(len(s) for _, _, s in group)
             hop = reference_hop(sr, cfg.frames, cfg.window_size, max_len)
             y = self._batch((s for _, _, s in group), max_len)
-            bpos = [cfg.bins_per_octave]
-            if cfg.multi_scale:
-                bpos.append(12)  # second scale: the semitone CQT
+            bpos = feature_bins(cfg)  # multi_scale: the semitone CQT too
             mels_by_bpo = {}
             for bpo in bpos:
                 params = CQTParams(sr=sr, hop=hop, bins_per_octave=bpo,

@@ -4,7 +4,10 @@
 `models/torch_port.py::variables_to_state_dict` (that module imports
 flax): the same key mapping and layout transposes (flax HWIO -> torch
 OIHW; the (3, I, O) third-upsample matrix -> ConvTranspose2d (I, O, 3, 1)).
-tests/test_torch_model.py pins the two together exactly.
+The multi-scale ensemble's towers come out under `model1.` and `model2.`,
+its regression weights (`wk`, `bk`, `wt`, `bt`, `wg`, `bg`) at the top
+level. tests/test_torch_model.py and tests/test_torch_multi_scale.py pin
+the two together exactly.
 
 `load_state_dict` fills a port model from such a dict or from a reference
 `best_model.pt`: the export writes an equivariant conv as `X.weight` and

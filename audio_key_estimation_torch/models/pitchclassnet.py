@@ -10,8 +10,9 @@ max (global mode) or per-window outputs (local mode). The public forward
 keeps the JAX package's input and outputs; inside, the network runs NCHW
 with torch's OIHW weights.
 
-`multi_scale` raises NotImplementedError naming its ROADMAP.md port queue
-item rather than silently running something else.
+`multi_scale` is the two-tower ensemble (models/multi_scale.py,
+`PitchClassNetMulti`; `build_model` picks the class): PitchClassNet
+refuses it rather than silently building one tower.
 
 Training: `cfg.remat` recomputes each trunk layer in the backward pass
 (torch.utils.checkpoint, the counterpart of the JAX package's nn.remat);
@@ -36,20 +37,6 @@ from .blocks import (LEAKY_SLOPE, BatchNorm, CircularConv, ConvStack,
                      DenseLayer, EquivariantConv, OctaveConvPool,
                      ThirdUpsample, ZeroPadConv, leaky_relu)
 from .schedule import head_in_channels, layer_channels
-
-# Config fields the port does not serve yet -> their ROADMAP.md item
-_LATER = {
-    "multi_scale": "port queue item 8 (multi_scale)",
-}
-
-
-def check_supported(cfg: Config) -> None:
-    """Raise NotImplementedError for a configuration the port cannot run."""
-    for field, item in _LATER.items():
-        if getattr(cfg, field):
-            raise NotImplementedError(
-                f"Config.{field}=True is not ported yet: ROADMAP.md {item}")
-
 
 def _remat_contexts(layer: nn.Module, generator):
     """torch.utils.checkpoint's (forward, recomputation) contexts for one
@@ -218,7 +205,10 @@ class PitchClassNet(nn.Module):
 
     def __init__(self, cfg: Config, generator: torch.Generator | None = None):
         super().__init__()
-        check_supported(cfg)
+        if cfg.multi_scale:
+            raise ValueError("Config.multi_scale=True is the two-tower "
+                             "ensemble: build PitchClassNetMulti "
+                             "(models.build_model picks the class)")
         if generator is None:
             generator = torch.Generator().manual_seed(cfg.seed)
         self.cfg = cfg

@@ -46,6 +46,14 @@ def use_cuda_kernels(setting, device: torch.device) -> bool:
                      "'auto' | 'on' | 'off' (or a boolean)")
 
 
+def feature_bins(cfg) -> tuple:
+    """Bins/octave of each CQT the model consumes: (cfg.bins_per_octave,),
+    and 12 beside it for the multi-scale ensemble's model2 (the JAX
+    package's predict.py::_features)."""
+    return ((cfg.bins_per_octave, 12) if cfg.multi_scale
+            else (cfg.bins_per_octave,))
+
+
 def compute_cqt(y: torch.Tensor, p: CQTParams, *, use_kernels: bool = False,
                 conv_dtype="bfloat16") -> torch.Tensor:
     """Batched log1p-CQT: (B, L) -> (B, n_bins, T).

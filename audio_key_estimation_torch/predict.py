@@ -1,13 +1,15 @@
 """Serving API: waveforms/files -> key, tonic, genre predictions.
 
 PyTorch port of the JAX package's predict.py: a `KeyEstimator` holds a
-PitchClassNet on an explicit device, batches audio through the CQT
-front-end and the network, and names the result, one key per clip
-(`predict_files`) or one per local window (`predict_files_local`, the
-same weights run in local mode). On a CUDA device the CQT runs through
-kernels A and B (`Config.use_pallas_cqt` "auto"/"on") and, with
-`Config.fused_convstack`, every Pitch2Pitch stack that kernel C's gate
-takes (`models/blocks.ConvStack.fusable`) through kernel C.
+PitchClassNet (or, with `Config.multi_scale`, the two-tower
+PitchClassNetMulti fed a second CQT at 12 bins/octave) on an explicit
+device, batches audio through the CQT front-end and the network, and
+names the result, one key per clip (`predict_files`) or one per local
+window (`predict_files_local`, the same weights run in local mode). On a
+CUDA device each CQT runs through kernels A and B
+(`Config.use_pallas_cqt` "auto"/"on") and, with `Config.fused_convstack`,
+every Pitch2Pitch stack that kernel C's gate takes
+(`models/blocks.ConvStack.fusable`) through kernel C.
 
 Key naming: the 12-dim sigmoid output is matched to the nearest
 KEY_SIGNATURE_MAP row (circle of fifths) exactly like the MIREX scorer
@@ -28,9 +30,9 @@ from .config import Config
 from .data import audio_io
 from .data.loaders import A_GENRES
 from .models.convert import load_state_dict
-from .models.pitchclassnet import PitchClassNet, check_supported
+from .models.multi_scale import build_model
 from .ops.cqt import CQTParams, reference_hop
-from .ops.frontend import compute_cqt, use_cuda_kernels
+from .ops.frontend import compute_cqt, feature_bins, use_cuda_kernels
 from .train import checkpoints as ckpt_lib
 from .utils.key_signatures import KEY_SIGNATURE_MAP
 
@@ -105,7 +107,8 @@ class KeyEstimator:
         `models.convert.state_dict_from_jax` of JAX variables (numpy
         arrays or tensors). Serving runs on the card; the CPU only when
         the caller asks for it (device="cpu"). Without CUDA the default
-        raises."""
+        raises, and so do weights of the other architecture than
+        cfg.multi_scale names (the ensemble's `model1.`/`model2.` keys)."""
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device={device!r}: CUDA is not available "
@@ -114,12 +117,20 @@ class KeyEstimator:
         # weights in local mode (as the JAX estimator applies one set of
         # variables to both)
         self.cfg = cfg.replace(local=False)
-        check_supported(self.cfg)
+        # serving builds the architecture the weights were trained with;
+        # a weights/config mismatch is refused, as the JAX estimator does
+        has_multi = any(str(k).startswith("model1.") for k in state_dict)
+        if has_multi != bool(cfg.multi_scale):
+            raise ValueError(
+                f"checkpoint/config mismatch: config.multi_scale="
+                f"{cfg.multi_scale} but the weights "
+                f"{'have' if has_multi else 'lack'} the model1/model2 "
+                "ensemble structure")
         self.use_kernels = use_cuda_kernels(self.cfg.use_pallas_cqt,
                                             self.device)
-        self.model = PitchClassNet(self.cfg)
+        self.model = build_model(self.cfg)
         load_state_dict(self.model, state_dict)
-        self.local_model = PitchClassNet(self.cfg.replace(local=True))
+        self.local_model = build_model(self.cfg.replace(local=True))
         self.local_model.load_state_dict(self.model.state_dict())
         self.model.to(self.device).eval()
         self.local_model.to(self.device).eval()
@@ -136,7 +147,8 @@ class KeyEstimator:
 
     @classmethod
     def from_torch_checkpoint(cls, path: str, cfg: Config, **kw):
-        """Load a reference `best_model.pt` (a torch state_dict)."""
+        """Load a reference `best_model.pt` (a torch state_dict) into the
+        model `cfg` describes."""
         sd = torch.load(path, map_location="cpu", weights_only=True)
         return cls(cfg, sd, **kw)
 
@@ -160,19 +172,23 @@ class KeyEstimator:
         return (torch.from_numpy(batch).to(self.device),
                 torch.from_numpy(seq).to(self.device), hop)
 
-    def features(self, batch: torch.Tensor, sr: int, hop: int):
-        """(B, L) signal batch -> (B, pitches, T, 1) log1p-CQT."""
+    def features(self, batch: torch.Tensor, sr: int, hop: int) -> tuple:
+        """(B, L) signal batch -> the model's inputs: (mel,), or (mel1,
+        mel2) for the multi-scale ensemble, each a (B, rows, T, 1)
+        log1p-CQT, one CQT per `feature_bins` entry."""
         cfg = self.cfg
-        params = CQTParams(sr=sr, hop=hop, bins_per_octave=cfg.bins_per_octave,
-                           octaves=cfg.octaves)
-        return compute_cqt(batch, params, use_kernels=self.use_kernels,
-                           conv_dtype=cfg.cqt_conv_dtype)[..., None]
+        return tuple(
+            compute_cqt(batch, CQTParams(sr=sr, hop=hop, bins_per_octave=bpo,
+                                         octaves=cfg.octaves),
+                        use_kernels=self.use_kernels,
+                        conv_dtype=cfg.cqt_conv_dtype)[..., None]
+            for bpo in feature_bins(cfg))
 
     @torch.inference_mode()
     def predict_waveforms(self, waveforms: Sequence[np.ndarray], sr: int,
                           return_raw: bool = False) -> List[Prediction]:
         batch, seq, hop = self.make_batch(waveforms, sr)
-        out = self.model(self.features(batch, sr, hop), seq)
+        out = self.model(*self.features(batch, sr, hop), seq)
         key = out[0].cpu().numpy()
         tonic = out[1].cpu().numpy()
         genre = out[2].cpu().numpy() if len(out) > 2 else None
@@ -219,7 +235,7 @@ class KeyEstimator:
         sliding max over frame windows)."""
         cfg = self.cfg
         batch, seq_t, hop = self.make_batch(waveforms, sr)
-        out = self.local_model(self.features(batch, sr, hop))
+        out = self.local_model(*self.features(batch, sr, hop))
         key = out[0].cpu().numpy()                   # (N, T', 12)
         tonic = out[1].cpu().numpy()
         genre = out[2].cpu().numpy() if len(out) > 2 else None

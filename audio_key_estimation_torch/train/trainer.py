@@ -31,7 +31,7 @@ import torch
 
 from ..config import Config
 from ..data.pipeline import prefetch
-from ..models.pitchclassnet import PitchClassNet, check_supported
+from ..models.multi_scale import build_model
 from . import checkpoints as ckpt_lib
 from .loss import compute_loss
 from .metrics import mirex_categories
@@ -43,7 +43,7 @@ MAX_INFLIGHT = 4
 
 @dataclasses.dataclass
 class TrainState:
-    model: PitchClassNet
+    model: torch.nn.Module      # PitchClassNet or PitchClassNetMulti
     optimizer: torch.optim.Adam
     step: int = 0
 
@@ -59,12 +59,12 @@ def resolve_device(device: Union[str, torch.device]) -> torch.device:
 def create_train_state(cfg: Config, seed: int = 0,
                        device: Union[str, torch.device] = "cuda"
                        ) -> TrainState:
-    """A PitchClassNet initialized from torch.Generator seed `seed` on
+    """The model `cfg` describes (build_model: PitchClassNet or the
+    multi-scale ensemble) initialized from torch.Generator seed `seed` on
     `device`, its dropout generator there, and Adam over its
     parameters."""
     device = resolve_device(device)
-    check_supported(cfg)
-    model = PitchClassNet(cfg, generator=torch.Generator().manual_seed(seed))
+    model = build_model(cfg, generator=torch.Generator().manual_seed(seed))
     model.to(device)
     model.set_dropout_generator(torch.Generator(device=device))
     return TrainState(model, make_optimizer(cfg, model.parameters()))
@@ -76,11 +76,14 @@ def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
             for k, v in batch.items()}
 
 
-def forward(model: PitchClassNet, cfg: Config, batch):
+def forward(model: torch.nn.Module, cfg: Config, batch):
     # seq_length masks the temporal pooling in every mode (the JAX
     # trainer's _forward): bucketed batches pad, and an unmasked mean would
-    # make a song's score depend on its batch's bucket
-    return model(batch["mel"], batch.get("seq_length"))
+    # make a song's score depend on its batch's bucket; the multi-scale
+    # ensemble takes the 12-bin CQT (mel2) beside mel
+    mels = ((batch["mel"], batch["mel2"]) if cfg.multi_scale
+            else (batch["mel"],))
+    return model(*mels, batch.get("seq_length"))
 
 
 def dropout_seed(seed: int, step: int, idx: int) -> int:
@@ -246,7 +249,6 @@ class Trainer:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        check_supported(self.cfg)
 
     def fit(self, seed: int = 0, metrics_writer=None, resume: bool = False,
             eval_at_start: bool = False):

@@ -32,17 +32,22 @@ non-zero):
              .predict_files on 16 PCM16 WAVs for the default model, every
              model variant (res/dense blocks, p2pc_conv, pc2p_mem,
              stay_sixth, only_semitones, max_pool, three layers, two
-             combinations) and the bf16 model, at the default widths:
-             launches checked against the gate (A 7, B 1, C 0, 1 or 3);
-             the served batch's own CQT and kernel C stacks held against
-             their plain versions; keys, tonics and the keys' spread
+             combinations), the bf16 model and the multi-scale ensemble
+             (averaging, and linear_reg_multi with genre: two CQTs at 36
+             and 12 bins/octave, kernel C on model1's stack at H = 288
+             and model2's at H = 96), at the default widths: launches
+             checked against the gate (A 7, B 1 per CQT, C 0, 1, 3 or
+             6); the served batch's own CQTs and kernel C stacks held
+             against their plain versions; keys, tonics and the keys' spread
              against the plain path (use_pallas_cqt="off",
              fused_convstack=False) on the card, keys on the CPU for two
              10 s clips; wall beside the plain path's and kernel C's share
-             of the model stage (torch.profiler); for the default the
-             stage split; then local mode (predict_files_local: windows
-             per clip and the first window's span, launches, the same
-             holds against the plain local path); then one default-model
+             of the model stage (torch.profiler; for the ensemble each
+             tower's split too); for the default the stage split; then
+             local mode, the default and the averaging ensemble
+             (predict_files_local: windows per clip and the first
+             window's span, launches, the same holds against the plain
+             local path); then one default-model
              batch of PCM16, float32 and 24-bit WAVs (a float32 batch
              through A, B and C), held the same way;
   5 dataset  KeyDataset.import_data on corpora written with
@@ -56,12 +61,14 @@ non-zero):
              window_size mode (frames == 0) the same way; the feature
              cache written (`_cuda` sidecars) and read back with no
              launch; walls split into decode, pack + H2D, CQT and labels;
-  6 train    training and evaluation at the default Config's full widths
-             on 64 training and 16 validation songs (120 s PCM16 at
+  6 train    training and evaluation at the full widths of the default
+             Config and of the averaging multi-scale ensemble, each on
+             the same 64 training and 16 validation songs (120 s PCM16 at
              22050 Hz, data/synthetic.py scale walks) imported through
-             kernels A and B: Trainer.fit for 3 epochs (batch 8 x
-             acc_grad 8, T = 601 in the 1024 bucket, fused_convstack on,
-             the epoch -1 evaluation, checkpoints), kernel C 3 times per
+             kernels A and B (the ensemble's mel2 a second CQT per
+             group): Trainer.fit for 3 epochs (batch 8 x acc_grad 8,
+             T = 601 in the 1024 bucket, fused_convstack on, the epoch -1
+             evaluation, checkpoints), kernel C 3 (ensemble 6) times per
              validation batch and never in a train step; one train step
              held against the CPU's (loss, gradients, BatchNorm
              statistics); the validation through kernel C held against
@@ -69,12 +76,13 @@ non-zero):
              one batch repeated for 10 steps (the loss must fall; step
              wall, peak memory, the step's device split by
              torch.profiler); the best checkpoint served back through
-             KeyEstimator.from_checkpoint against the trainer's own eval
-             outputs;
+             KeyEstimator.from_checkpoint within 1e-3 of the trainer's
+             own eval outputs;
   7 probes   the probe and experiment kernels (ops/probes_cuda.py and
              kernel B's stage split) against their plain versions at a
              small geometry and at the serving geometry, exact for the
-             copies, and #8 replayed from a CUDA graph; then each probe
+             copies, each also replayed from a CUDA graph (the card's
+             time; #8 beside torch.ones'); then each probe
              entry point
              (audio_key_estimation_torch/scripts/) driven once at the
              serving geometry, every probe kernel's launch count checked;
@@ -102,7 +110,7 @@ from audio_key_estimation_torch.data import audio_io, loaders, synthetic
 from audio_key_estimation_torch.data.dataset import KeyDataset
 from audio_key_estimation_torch.data.dataset import \
     cache_path as dataset_cache_path
-from audio_key_estimation_torch.models import PitchClassNet
+from audio_key_estimation_torch.models import build_model
 from audio_key_estimation_torch.models.blocks import BatchNorm, ConvStack
 from audio_key_estimation_torch.native import binding
 from audio_key_estimation_torch.ops import _build
@@ -110,7 +118,7 @@ from audio_key_estimation_torch.ops import convstack_cuda as CS
 from audio_key_estimation_torch.ops import cqt as C
 from audio_key_estimation_torch.ops import cqt_cuda as K
 from audio_key_estimation_torch.ops import equivariant
-from audio_key_estimation_torch.ops.frontend import torch_dtype
+from audio_key_estimation_torch.ops.frontend import feature_bins, torch_dtype
 from audio_key_estimation_torch.ops import probes_cuda as PC
 from audio_key_estimation_torch.predict import KeyEstimator
 from audio_key_estimation_torch.scripts import (experiment_transpose_kernel,
@@ -706,17 +714,19 @@ def check_edge_geometries(device) -> None:
 # ---------------------------------------------------------------------------
 
 def seeded_weights(cfg: Config) -> dict:
-    """PitchClassNet weights from torch.Generator seed 0, BatchNorm
+    """The weights of the model cfg describes (build_model: PitchClassNet,
+    or the multi-scale ensemble) from torch.Generator seed 0, BatchNorm
     affines drawn from it too (so the fold is exercised), then every
     BatchNorm's statistics measured on four 10 s clips through the plain
-    float32 path on the CPU. With statistics drawn at random each layer
-    shrinks the signal, so the key outputs hang on the biases and barely
-    differ between clips, and no end-to-end comparison could see an error
+    float32 path on the CPU, each tower's on its own CQT (36 or 12
+    bins/octave). With statistics drawn at random each layer shrinks the
+    signal, so the key outputs hang on the biases and barely differ
+    between clips, and no end-to-end comparison could see an error
     upstream; measured, each layer's output has unit scale per channel."""
     g = torch.Generator().manual_seed(0)
     cfg32 = cfg.replace(dtype="float32", use_pallas_cqt="off",
                         fused_convstack=False)
-    model = PitchClassNet(cfg32, generator=g)
+    model = build_model(cfg32, generator=g)
     with torch.no_grad():
         for m in model.modules():
             if isinstance(m, BatchNorm):
@@ -727,12 +737,12 @@ def seeded_weights(cfg: Config) -> dict:
     batch, seq, hop = est.make_batch([pcm16(w[:10 * SR]) for w in clips(4)],
                                      SR)
     with torch.no_grad():
-        mel = est.features(batch, SR, hop)
+        mels = est.features(batch, SR, hop)
         for m in est.model.modules():
             if isinstance(m, BatchNorm):
                 m.momentum = 1.0      # running statistics := this batch's
                 m.train()
-        est.model(mel, seq)
+        est.model(*mels, seq)
     return est.model.state_dict()
 
 
@@ -769,16 +779,31 @@ VARIANTS = {
     "dense_p2pc_conv": dict(denseblock=True, p2pc_conv=True),
     "bf16": dict(dtype="bfloat16"),
 }
+# the two-tower ensemble: two CQTs (36 and 12 bins/octave), kernel C on
+# model1's stack at H = 288 and model2's at H = 96
+MULTI_SCALE = {
+    "multi_scale": dict(multi_scale=True),
+    "multi_scale_linear_reg_genre": dict(multi_scale=True,
+                                         linear_reg_multi=True, genre=True),
+}
 COUNTERS = (K.cascade_pad, K.octave_response, CS.conv7_layer)
 
 
+def fused_layers(model: torch.nn.Module) -> int:
+    """Kernel C launches one forward of `model` makes: one per layer of
+    every stack its gate takes (ConvStack.fusable), in every tower."""
+    return sum(len(m.cins) for m in model.modules()
+               if isinstance(m, ConvStack) and m.fusable)
+
+
 def expected_launches(est: KeyEstimator) -> dict:
-    """Launches one served batch must make: kernel A once per octave step,
-    B once, C once per layer of every stack its gate takes
-    (ConvStack.fusable)."""
-    return {"cascade_pad": est.cfg.octaves - 1, "octave_response": 1,
-            "conv7_layer": sum(len(m.cins) for m in est.model.modules()
-                               if isinstance(m, ConvStack) and m.fusable)}
+    """Launches one served batch must make, from its config: for each CQT
+    the model consumes (feature_bins: one, or two for the multi-scale
+    ensemble) kernel A once per octave step and B once; C once per layer
+    of every stack its gate takes (ConvStack.fusable), in every tower."""
+    n_cqt = len(feature_bins(est.cfg))
+    return {"cascade_pad": n_cqt * (est.cfg.octaves - 1),
+            "octave_response": n_cqt, "conv7_layer": fused_layers(est.model)}
 
 
 def counted(fn):
@@ -800,8 +825,9 @@ def counted(fn):
 
 def served(est: KeyEstimator, fn):
     """counted(fn), recording what the served batch gave the kernels:
-    each est.features call's (batch, sr, hop) and log-CQT (kernels A and
-    B), and the input of every ConvStack that kernel C's gate takes.
+    each est.features call's (batch, sr, hop) and log-CQTs (kernels A and
+    B; two for the multi-scale ensemble), and the input of every ConvStack
+    that kernel C's gate takes, in every tower.
     Returns (result, launches, wall seconds, features, stacks)."""
     feats, stacks = [], []
     hooks = [m.register_forward_pre_hook(
@@ -826,23 +852,27 @@ def served(est: KeyEstimator, fn):
 
 def hold_served(name: str, est: KeyEstimator, feats, stacks) -> dict:
     """The served batch's kernel work again on its own card tensors,
-    against the plain versions: its log-CQT against the plain cqt at
-    check_cqt's bars, and every stack kernel C took, layer by layer, at
-    check_conv7's bars (check_stack)."""
+    against the plain versions: each of its log-CQTs (one per
+    feature_bins entry) against the plain cqt at its own bins/octave at
+    check_cqt's bars, and every stack kernel C took, in every tower, layer
+    by layer at check_conv7's bars (check_stack)."""
     cfg = est.cfg
     sd = torch_dtype(cfg.cqt_conv_dtype)
-    res = {"cqt_d": 0.0, "stacks": [], "c_d": 0.0, "beyond_1ulp": 0,
-           "stack_rel": 0.0}
+    res = {"cqt_d": 0.0, "cqt_bins": [], "stacks": [], "c_d": 0.0,
+           "beyond_1ulp": 0, "stack_rel": 0.0}
     if not feats:
         raise AssertionError(f"{name}: the served batch ran no CQT")
     with torch.inference_mode():
-        for batch, sr, hop, got in feats:
-            p = C.CQTParams(sr=sr, hop=hop,
-                            bins_per_octave=cfg.bins_per_octave,
-                            octaves=cfg.octaves)
-            res["cqt_d"] = max(res["cqt_d"], check_cqt(
-                f"{name}: served CQT {p}", got[..., 0],
-                C.cqt(batch, p, stream_dtype=sd), sd))
+        for batch, sr, hop, mels in feats:
+            if len(mels) != len(feature_bins(cfg)):
+                raise AssertionError(f"{name}: {len(mels)} CQTs served")
+            for bpo, got in zip(feature_bins(cfg), mels):
+                p = C.CQTParams(sr=sr, hop=hop, bins_per_octave=bpo,
+                                octaves=cfg.octaves)
+                res["cqt_d"] = max(res["cqt_d"], check_cqt(
+                    f"{name}: served CQT {p}", got[..., 0],
+                    C.cqt(batch, p, stream_dtype=sd), sd))
+                res["cqt_bins"].append(bpo)
             res["cqt_batch"] = tuple(batch.shape)
         for m, x in stacks:
             if not m.use_fused(x):
@@ -893,8 +923,10 @@ def agreement_text(a: dict) -> str:
 
 
 def held_text(name: str, h: dict) -> str:
+    bins = "/".join(str(b) for b in h["cqt_bins"])
     return (f"[4 serve] {name}, the served batch's own tensors: CQT "
-            f"{h['cqt_batch']} vs plain max|d| {h['cqt_d']:.3g}; kernel C "
+            f"{h['cqt_batch']} at {bins} bins/octave vs plain max|d| "
+            f"{h['cqt_d']:.3g}; kernel C "
             f"stacks [{', '.join(h['stacks'])}] layer by layer max|d| "
             f"{h['c_d']:.3g}, {h['beyond_1ulp']} elements beyond 1 bf16 ulp "
             f"(within the float32 sum bound), stack max rel "
@@ -902,9 +934,10 @@ def held_text(name: str, h: dict) -> str:
 
 
 def serve_variants(paths, device) -> dict:
-    """Every variant served on the card with the default Config's widths
-    (fused_convstack on, seeded weights): its launches (A 7, B 1, C as
-    its gate takes); the served batch's CQT and kernel C stacks against
+    """Every variant and the multi-scale ensemble served on the card with
+    the default Config's widths (fused_convstack on, seeded weights): its
+    launches (A 7 and B 1 per CQT, C as its gate takes in every tower:
+    expected_launches); the served batch's CQTs and kernel C stacks against
     their plain versions on the batch's own tensors (hold_served); key and
     tonic against the plain path on the card (agreement) and key against
     the plain path on the CPU (two 10 s clips); its wall beside the plain
@@ -912,7 +945,7 @@ def serve_variants(paths, device) -> dict:
     the stage split and the model stage's largest rows."""
     res = {}
     audio_min = len(paths) * CLIP_SECONDS / 60.0
-    for name, kw in VARIANTS.items():
+    for name, kw in (VARIANTS | MULTI_SCALE).items():
         cfg = Config(fused_convstack=True, **kw)
         weights = seeded_weights(cfg)
         est = KeyEstimator(cfg, weights, device=device)
@@ -949,7 +982,7 @@ def serve_variants(paths, device) -> dict:
             f"{split['conv7_ms']:.3f} ms "
             f"({split['conv7_ms'] / split['total_ms']:.1%}), largest "
             + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in split["top"][:2])
-            + f" ({card_line()})")
+            + towers_text(split) + f" ({card_line()})")
         log(held_text(f"variant {name}", held))
         if name == "default":
             stages = stage_ms(est, paths)
@@ -969,13 +1002,15 @@ def serve_variants(paths, device) -> dict:
     return res
 
 
-def serve_local(paths, device) -> dict:
-    """The default model through predict_files_local: launches A 7, B 1,
-    C 3; one window per frame step, (601 - frames * loc_window_size + 1)
-    for a 120 s clip, the first over [0, loc_window_size) s; the served
-    batch's kernels held as in serve_variants; every window's outputs
-    against the plain local path's (agreement)."""
-    cfg = Config(fused_convstack=True)
+def serve_local(paths, device, name: str = "default", **kw) -> dict:
+    """A model (the default, or Config(**kw)) through predict_files_local:
+    launches as expected_launches says (A 7, B 1, C 3 for the default; A
+    14, B 2, C 6 for the multi-scale ensemble); one window per frame step,
+    (601 - frames * loc_window_size + 1) for a 120 s clip, the first over
+    [0, loc_window_size) s; the served batch's kernels held as in
+    serve_variants; every window's outputs against the plain local path's
+    (agreement)."""
+    cfg = Config(fused_convstack=True, **kw)
     weights = seeded_weights(cfg)
     est = KeyEstimator(cfg, weights, device=device)
     plain = KeyEstimator(cfg.replace(use_pallas_cqt="off",
@@ -984,8 +1019,8 @@ def serve_local(paths, device) -> dict:
     est.predict_files_local(paths)    # warm-up
     preds, launches, wall, feats, stacks = served(
         est, lambda: est.predict_files_local(paths, return_raw=True))
-    if launches != expected_launches(est) or launches["conv7_layer"] != 3:
-        raise AssertionError(f"local serve launches {launches}")
+    if launches != expected_launches(est) or not launches["conv7_layer"]:
+        raise AssertionError(f"local serve {name} launches {launches}")
     ref = plain.predict_files_local(paths, return_raw=True)
     frames = 1 + CLIP_SECONDS * cfg.frames
     n_win = frames - cfg.frames * cfg.loc_window_size + 1
@@ -995,21 +1030,22 @@ def serve_local(paths, device) -> dict:
                 or (w0.start, w0.end) != (0.0, float(cfg.loc_window_size)):
             raise AssertionError(f"local serve: {len(q.windows)} windows, "
                                  f"first {w0}, want {n_win}")
-    agree = agreement("local", preds, ref, (len(paths), n_win, 12))
-    held = hold_served("local", est, feats, stacks)
+    agree = agreement(f"local {name}", preds, ref, (len(paths), n_win, 12))
+    held = hold_served(f"local {name}", est, feats, stacks)
     del feats, stacks
     audio_min = len(paths) * CLIP_SECONDS / 60.0
     split = model_split(est, paths, local=True)
-    log(f"[4 serve] local mode (predict_files_local): {n_win} windows per "
-        f"clip, first [{w0.start}, {w0.end}) s; launches A "
+    log(f"[4 serve] local mode {name} (predict_files_local): {n_win} windows"
+        f" per clip, first [{w0.start}, {w0.end}) s; launches A "
         f"{launches['cascade_pad']} B {launches['octave_response']} C "
         f"{launches['conv7_layer']}; over {len(preds) * n_win} windows "
         f"{agreement_text(agree)}; wall {wall * 1e3:.1f} ms = "
         f"{audio_min / wall:.1f} audio-min/s; model stage "
         f"{split['total_ms']:.3f} ms device, kernel C "
         f"{split['conv7_ms']:.3f} ms "
-        f"({split['conv7_ms'] / split['total_ms']:.1%}) ({card_line()})")
-    log(held_text("local mode", held))
+        f"({split['conv7_ms'] / split['total_ms']:.1%})"
+        + towers_text(split) + f" ({card_line()})")
+    log(held_text(f"local mode {name}", held))
     return {"launches": launches, "windows": n_win, **agree,
             "wall_ms": wall * 1e3, "model_ms": split["total_ms"],
             "conv7_ms": split["conv7_ms"], "held": held}
@@ -1094,36 +1130,26 @@ def stage_ms(est: KeyEstimator, paths) -> dict:
     torch.cuda.synchronize()
     t.append(time.perf_counter())
     with torch.inference_mode():
-        mel = est.features(batch, sr, hop)
+        mels = est.features(batch, sr, hop)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
-        est.model(mel, seq)
+        est.model(*mels, seq)
         torch.cuda.synchronize()
         t.append(time.perf_counter())
     names = ("decode", "batch+H2D", "cqt", "model")
     return {n: (b - a) * 1e3 for n, a, b in zip(names, t, t[1:])}
 
 
-def model_split(est: KeyEstimator, paths, with_conv7: bool = True,
-                local: bool = False) -> dict:
-    """The model stage of one served batch on the card (global or local
-    mode): one torch.profiler pass over est.model (or est.local_model),
-    device rows only
-    (kernels and copies; the host's aten rows carry the same time again),
-    kernel C's rows (which must be there when with_conv7, and absent
-    otherwise) against the rest and the largest rows by name."""
-    decoded = list(audio_io.decode_many(paths, raw=True))
-    sr = decoded[0][1]
-    batch, seq, hop = est.make_batch([w for w, _ in decoded], sr)
+def device_rows(fn) -> dict:
+    """fn() once as a warm-up, then once under torch.profiler: its device
+    rows only (kernels and copies; the host's aten rows carry the same
+    time again), summed by name, with kernel C's rows apart."""
+    fn()
+    torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
-    net = est.local_model if local else est.model
-    with torch.inference_mode():
-        mel = est.features(batch, sr, hop)
-        net(mel, seq)
+    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        fn()
         torch.cuda.synchronize()
-        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-            net(mel, seq)
-            torch.cuda.synchronize()
     rows = {}
     n = conv7 = 0
     conv7_us = 0.0
@@ -1136,13 +1162,49 @@ def model_split(est: KeyEstimator, paths, with_conv7: bool = True,
         if "conv7_kernel" in e.name:
             conv7 += 1
             conv7_us += us
-    if not n or bool(conv7) != with_conv7:
-        raise AssertionError(f"profiler saw {n} device rows, {conv7} of "
-                             "kernel C")
-    top = sorted(rows.items(), key=lambda kv: -kv[1])[:5]
     return {"total_ms": sum(rows.values()), "kernels": n,
             "conv7_ms": conv7_us / 1e3, "conv7_launches": conv7,
-            "top": top, "tf32": torch.backends.cudnn.allow_tf32}
+            "top": sorted(rows.items(), key=lambda kv: -kv[1])[:5],
+            "tf32": torch.backends.cudnn.allow_tf32}
+
+
+def model_split(est: KeyEstimator, paths, with_conv7: bool = True,
+                local: bool = False) -> dict:
+    """The model stage of one served batch on the card (global or local
+    mode): one torch.profiler pass over est.model (or est.local_model),
+    kernel C's rows (which must be there when with_conv7, and absent
+    otherwise) against the rest and the largest rows by name
+    (device_rows); for the multi-scale ensemble also each tower alone on
+    its own CQT (`towers`: model1 at 36, model2 at 12 bins/octave)."""
+    decoded = list(audio_io.decode_many(paths, raw=True))
+    sr = decoded[0][1]
+    batch, seq, hop = est.make_batch([w for w, _ in decoded], sr)
+    net = est.local_model if local else est.model
+    with torch.inference_mode():
+        mels = est.features(batch, sr, hop)
+        res = device_rows(lambda: net(*mels, seq))
+        if est.cfg.multi_scale:
+            res["towers"] = {
+                name: device_rows(lambda t=tower, m=mel: t(m, seq))
+                for name, tower, mel in (("model1", net.model1, mels[0]),
+                                         ("model2", net.model2, mels[1]))}
+    if not res["kernels"] or bool(res["conv7_launches"]) != with_conv7:
+        raise AssertionError(f"profiler saw {res['kernels']} device rows, "
+                             f"{res['conv7_launches']} of kernel C")
+    return res
+
+
+def towers_text(split: dict) -> str:
+    """Each tower's device ms: kernel C against the rest (cuDNN's convs
+    and the other kernels) and its largest row."""
+    if "towers" not in split:
+        return ""
+    return "; towers: " + ", ".join(
+        f"{k} {t['total_ms']:.3f} ms (kernel C {t['conv7_ms']:.3f} ms in "
+        f"{t['conv7_launches']} launches, the rest "
+        f"{t['total_ms'] - t['conv7_ms']:.3f} ms, largest "
+        f"{t['top'][0][0][:40]} {t['top'][0][1]:.3f} ms)"
+        for k, t in split["towers"].items())
 
 
 # ---------------------------------------------------------------------------
@@ -1609,7 +1671,8 @@ def check_validation(state, cfg: Config, val, device,
                      min_spread: float = 0.0) -> dict:
     """The trained state's validation through kernel C against the plain
     path (the same weights in a model with fused_convstack=False) on the
-    card: 3 C launches per batch and none on the plain path; per-song keys
+    card: fused_layers C launches per batch (3, or 6 for the multi-scale
+    ensemble) and none on the plain path; per-song keys
     and tonics at the agreement bars (3e-2, tonic 3e-2 of its peak); the
     validation loss within loss_bar; songs whose MIREX categories differ
     named with their top-2 cosine margin and key |d|; evaluate's wall
@@ -1622,10 +1685,12 @@ def check_validation(state, cfg: Config, val, device,
     n_batches = -(-len(val) // cfg.batch_size)
     got, launches, _ = eval_outputs(state, cfg, val)
     ref, launches_plain, _ = eval_outputs(plain, plain_cfg, val)
-    if launches["conv7_layer"] != 3 * n_batches \
+    per_batch = fused_layers(state.model)
+    if not per_batch or launches["conv7_layer"] != per_batch * n_batches \
             or launches_plain["conv7_layer"] != 0:
         raise AssertionError(f"validation launches {launches} (plain "
-                             f"{launches_plain}), want C 3 per batch")
+                             f"{launches_plain}), want C {per_batch} per "
+                             "batch")
     res = {"launches": launches, "batches": n_batches,
            "key_spread": float((ref["key"].max(0).values
                                 - ref["key"].min(0).values).max()),
@@ -1660,9 +1725,9 @@ def check_validation(state, cfg: Config, val, device,
     return res
 
 
-def validation_text(name: str, v: dict) -> str:
+def validation_text(tag: str, name: str, v: dict) -> str:
     return (
-        f"[6 train] validation of {name}, through kernel C vs the plain "
+        f"[6 train] {tag}validation of {name}, through kernel C vs the plain "
         f"path ({v['batches']} batches, launches C "
         f"{v['launches']['conv7_layer']}, plain 0): key |d| {v['key_d']:.3g}"
         f" (bar 3e-2; the keys spread {v['key_spread']:.3f} across songs), "
@@ -1725,57 +1790,66 @@ def train_split(state, cfg: Config, batch) -> dict:
     return {"total_ms": total, "split": split, "top": top}
 
 
-def run_train(td: str, device) -> dict:
-    """Training and evaluation on the card at the default Config's full
-    widths (2 layers, 3 convs, 4 filters, kernel 7, 288 rows; batch 8 x
-    acc_grad 8 = 64 songs a step; T = 601 in the 1024 bucket),
-    fused_convstack on, 3 epochs with the epoch -1 evaluation, checkpoints
-    in a run directory: features imported by KeyDataset through kernels A
-    and B (A 7, B 1 per group); Trainer.fit launching kernel C 3 times per
-    validation batch and never in a train step; one step held against the
-    CPU; the validation through kernel C held against the plain path; one
-    batch repeated for 10 steps (the loss must fall; step wall, peak
-    memory, the step's device split); the best checkpoint served back
-    through KeyEstimator.from_checkpoint.predict_files against the
-    trainer's own eval outputs of that state."""
-    cfg = Config(fused_convstack=True, epochs=3)
-    t0 = time.perf_counter()
-    roots = build_train_corpora(td)
-    log(f"[6 train] corpora written with data/synthetic.py in "
-        f"{time.perf_counter() - t0:.1f} s: {TRAIN_SONGS} training and "
-        f"{VAL_SONGS} validation songs, {CLIP_SECONDS} s PCM16 at {SR} Hz "
-        f"(scale walks)")
+def import_train_sets(roots: dict, cfg: Config, device, tag: str) -> tuple:
+    """The training and validation corpora imported by KeyDataset through
+    kernels A and B (A 7, B 1 per group and bins/octave: the multi-scale
+    ensemble's mel2 is a second CQT per group). Returns (train, val,
+    launches, T, bucket)."""
     sets, imports = {}, {}
     for name in ("train", "val"):
         ds = KeyDataset(False, cfg, blacklist_path="", use_cache=False,
                         device=device)
         imports[name] = timed_import(ds, loaders.GiantStepsKeyLoader(
             roots[name]))
-        check_dataset_launches(f"train phase {name}", imports[name], True,
-                               cfg.octaves)
+        check_dataset_launches(f"train phase {tag}{name}", imports[name],
+                               True, cfg.octaves)
+        bins = sorted({c["bpo"] for c in imports[name]["calls"]})
+        if bins != sorted(feature_bins(cfg)):
+            raise AssertionError(f"{name}: CQTs at {bins} bins/octave")
         sets[name] = ds
         t_max = max(it["mel"].shape[-1] for it in ds.items)
         if t_max != 1 + CLIP_SECONDS * cfg.frames:
             raise AssertionError(f"{name}: {t_max} frames")
     bucket = next(b for b in cfg.bucket_sizes if b >= t_max)
-    train, val = sets["train"], sets["val"]
-    import_launches = {k: sum(r["launches"][k] for r in imports.values())
-                       for k in imports["train"]["launches"]}
-    log(f"[6 train] import: " + "; ".join(
-        f"{n} {len(sets[n])} songs in {len(r['calls'])} groups, "
+    launches = {k: sum(r["launches"][k] for r in imports.values())
+                for k in imports["train"]["launches"]}
+    log(f"[6 train] {tag}import: " + "; ".join(
+        f"{n} {len(sets[n])} songs in {len(r['calls'])} CQT calls, "
         f"{r['wall'] * 1e3:.1f} ms ({split_text(r)} ms), launches A "
         f"{r['launches']['cascade_pad']} B {r['launches']['octave_response']}"
         for n, r in imports.items()))
+    return sets["train"], sets["val"], launches, t_max, bucket
+
+
+def run_train(roots: dict, td: str, device, cfg: Config,
+              tag: str = "") -> dict:
+    """Training and evaluation on the card at the Config's full widths
+    (the default: 2 layers, 3 convs, 4 filters, kernel 7, 288 rows; the
+    multi-scale ensemble adds model2 on 96 rows of the 12-bin CQT; batch
+    8 x acc_grad 8 = 64 songs a step; T = 601 in the 1024 bucket),
+    fused_convstack on, 3 epochs with the epoch -1 evaluation, checkpoints
+    in a run directory: features imported by KeyDataset through kernels A
+    and B (A 7, B 1 per group and CQT); Trainer.fit launching kernel C
+    fused_layers times per validation batch and never in a train step; one
+    step held against the CPU; the validation through kernel C held
+    against the plain path; one batch repeated for 10 steps (the loss must
+    fall; step wall, peak memory, the step's device split); the best
+    checkpoint served back through
+    KeyEstimator.from_checkpoint.predict_files within 1e-3 of the
+    trainer's own eval outputs of that state."""
+    train, val, import_launches, t_max, bucket = import_train_sets(
+        roots, cfg, device, tag)
 
     run_dir = os.path.join(td, "run")
     tr = T.Trainer(cfg, train, val, log_dir=run_dir, device=device)
     (state, hist), fit_launches, fit_wall = counted(
         lambda: tr.fit(seed=0, eval_at_start=True))
     n_batches = -(-len(val) // cfg.batch_size)
+    per_batch = fused_layers(state.model)
     want = {"cascade_pad": 0, "octave_response": 0,
-            "conv7_layer": 3 * n_batches * len(hist)}
+            "conv7_layer": per_batch * n_batches * len(hist)}
     steps = cfg.epochs * (len(train) // (cfg.batch_size * cfg.acc_grad))
-    if fit_launches != want or state.step != steps:
+    if not per_batch or fit_launches != want or state.step != steps:
         raise AssertionError(f"fit: launches {fit_launches} (want {want}), "
                              f"{state.step} steps (want {steps})")
     if not all(np.isfinite(r["val_loss"]) for r in hist) or not all(
@@ -1784,13 +1858,14 @@ def run_train(td: str, device) -> dict:
     if not {"best_model.pt", "last_state.pt", "config.json"} <= set(
             os.listdir(run_dir)):
         raise AssertionError(f"run directory {os.listdir(run_dir)}")
-    log(f"[6 train] Trainer.fit: {len(hist) - 1} epochs of "
+    log(f"[6 train] {tag}Trainer.fit: {len(hist) - 1} epochs of "
         f"{steps // cfg.epochs} step(s) ({cfg.batch_size} x {cfg.acc_grad} "
         f"songs, T {t_max} in the {bucket} bucket) in {fit_wall:.2f} s, "
         f"launches "
         f"A {fit_launches['cascade_pad']} B {fit_launches['octave_response']}"
-        f" C {fit_launches['conv7_layer']} (3 per validation batch x "
-        f"{n_batches} batches x {len(hist)} evaluations, 0 per train step); "
+        f" C {fit_launches['conv7_layer']} ({per_batch} per validation batch"
+        f" x {n_batches} batches x {len(hist)} evaluations, 0 per train "
+        f"step); "
         + "; ".join(f"epoch {r['epoch']}: train_loss {r['train_loss']:.4f} "
                     f"val_loss {r['val_loss']:.4f} val_mirex "
                     f"{r['val_mirex']:.4f} ({r['epoch_seconds']:.2f} s)"
@@ -1802,8 +1877,9 @@ def run_train(td: str, device) -> dict:
     first = {k: np.reshape(v, (cfg.acc_grad, cfg.batch_size) + v.shape[1:])
              for k, v in first.items()}
     cpu = step_against_cpu(cfg, first, device)
-    log(f"[6 train] one step, card vs CPU (same weights and batch, drop 0,"
-        f" TF32 {torch.backends.cudnn.allow_tf32}): loss {cpu['loss']:.6f} "
+    log(f"[6 train] {tag}one step, card vs CPU (same weights and batch, "
+        f"drop 0, TF32 {torch.backends.cudnn.allow_tf32}): loss "
+        f"{cpu['loss']:.6f} "
         f"vs {cpu['cpu_loss']:.6f} (rel {cpu['loss_rel']:.3g}, bar 1e-4); "
         f"gradients at {cpu['grad']['ratio']:.3g} of their bar (1e-3 of the "
         f"tensor's largest + 1e-3 of the model's), the worst "
@@ -1816,7 +1892,7 @@ def run_train(td: str, device) -> dict:
         f"the CPU")
 
     v = check_validation(state, cfg, val, device)
-    log(validation_text("the state Trainer.fit ended with", v))
+    log(validation_text(tag, "the state Trainer.fit ended with", v))
 
     fresh = T.create_train_state(cfg, 2, device)
     step = T.make_train_step(cfg, 1, seed=0)
@@ -1837,28 +1913,30 @@ def run_train(td: str, device) -> dict:
     # (its BatchNorm statistics are still mostly the initial ones); this
     # state's must answer to the audio, so that its agreement means more
     v2 = check_validation(fresh, cfg, val, device, min_spread=0.05)
-    log(f"[6 train] one batch of {cfg.batch_size * cfg.acc_grad} songs "
+    log(f"[6 train] {tag}one batch of {cfg.batch_size * cfg.acc_grad} songs "
         f"repeated for 10 steps: loss {losses[0]:.4f} -> {losses[-1]:.4f} "
         f"(" + ", ".join(f"{x:.4f}" for x in losses) + "); step wall "
         f"median {med * 1e3:.1f} ms (min {min(walls) * 1e3:.1f}, max "
         f"{max(walls) * 1e3:.1f}) = {cfg.batch_size * cfg.acc_grad / med:.1f}"
         f" songs/s; peak memory {peak / 2**20:.1f} MiB "
         f"(max_memory_allocated); ({card_line()})")
-    log(f"[6 train] one step on the card (torch.profiler, TF32 "
+    log(f"[6 train] {tag}one step on the card (torch.profiler, TF32 "
         f"{torch.backends.cudnn.allow_tf32}): {split['total_ms']:.3f} ms "
         f"device; " + ", ".join(f"{k} {v_:.3f} ms"
                                 for k, v_ in split["split"].items())
         + "; largest kernels: " + "; ".join(
             f"{k[:60]} {t:.3f} ms" for k, t in split["top"]))
-    log(validation_text("the state after one batch's 11 steps", v2))
+    log(validation_text(tag, "the state after one batch's 11 steps", v2))
 
     est = KeyEstimator.from_checkpoint(run_dir, device=device)
+    if est.cfg.multi_scale != cfg.multi_scale:
+        raise AssertionError(f"checkpoint served as {est.cfg}")
     paths = [it["file"] for it in val.items]
     est.predict_files(paths)          # warm-up
     preds, serve_launches, serve_wall = counted(
         lambda: est.predict_files(paths, return_raw=True))
     if serve_launches != expected_launches(est) \
-            or serve_launches["conv7_layer"] != 3:
+            or serve_launches["conv7_layer"] != per_batch:
         raise AssertionError(f"checkpoint served: launches {serve_launches}")
     best = T.create_train_state(cfg, 0, device)
     best.model.load_state_dict(torch.load(
@@ -1866,21 +1944,22 @@ def run_train(td: str, device) -> dict:
     own, _, _ = eval_outputs(best, cfg, val)
     served_key = torch.from_numpy(np.stack([q.key_probs for q in preds]))
     serve_d = float((served_key - own["key"]).abs().max())
-    if serve_d >= 3e-2 or not torch.isfinite(served_key).all():
+    if serve_d >= 1e-3 or not torch.isfinite(served_key).all():
         raise AssertionError(f"checkpoint served: key |d| {serve_d}")
-    log(f"[6 train] best checkpoint served back "
+    log(f"[6 train] {tag}best checkpoint served back "
         f"(KeyEstimator.from_checkpoint, predict_files on the "
         f"{len(paths)} validation WAVs): launches A "
         f"{serve_launches['cascade_pad']} B "
         f"{serve_launches['octave_response']} C "
         f"{serve_launches['conv7_layer']}; key |d| against the trainer's "
-        f"eval outputs of that state {serve_d:.3g} (bar 3e-2); e.g. "
+        f"eval outputs of that state {serve_d:.3g} (bar 1e-3); e.g. "
         f"{preds[0].key!r}; wall {serve_wall * 1e3:.1f} ms")
     return {"import_launches": import_launches,
             "fit_launches": fit_launches,
             "val_launches": {k: v["launches"][k] + v2["launches"][k]
                              for k in v["launches"]},
-            "serve_launches": serve_launches}
+            "serve_launches": serve_launches,
+            "step_ms": med * 1e3, "peak_mib": peak / 2**20}
 
 
 # ---------------------------------------------------------------------------
@@ -1901,7 +1980,8 @@ def check_exact(name, got, ref) -> float:
 def check_window_copy(device) -> dict:
     """#5, six variants: 44.1 kHz 3 s B = 4 (the CPU test's geometry) and
     the serving geometry (22050 Hz, 120 s, B = 16); times at the latter."""
-    res = {"ms": 0.0, "plain_ms": 0.0, "rates": {}, "bound_ms": 0.0}
+    res = {"ms": 0.0, "card_ms": 0.0, "plain_ms": 0.0, "rates": {},
+           "bound_ms": 0.0}
     for sr, clip, batch in ((44100, 3, 4), (SR, CLIP_SECONDS, BATCH)):
         n_fft, hop, L, tile_t, starts, length = probe_dma_rate.geometry(
             sr, clip, batch)
@@ -1916,6 +1996,7 @@ def check_window_copy(device) -> dict:
             if sr == SR:
                 ms = time_ms(lambda: PC.window_copy(*args))
                 res["ms"] += ms
+                res["card_ms"] += graph_ms(lambda: PC.window_copy(*args))
                 res["plain_ms"] += time_ms(lambda: PC.window_copy_plain(*args))
                 nbytes = PC.window_copy_bytes(v, len(starts), tile_t, win,
                                               batch)
@@ -1925,7 +2006,9 @@ def check_window_copy(device) -> dict:
                     "bound_ms"]
     log("[7 probes] #5 window_copy: 6 variants x 2 geometries exact; at "
         "serving geometry " + ", ".join(
-            f"{v} {r:.0f} GB/s" for v, r in res["rates"].items()))
+            f"{v} {r:.0f} GB/s" for v, r in res["rates"].items())
+        + f"; six variants {res['ms']:.4f} ms eager, {res['card_ms']:.4f} "
+        "ms on the card (CUDA graph)")
     return res
 
 
@@ -1935,8 +2018,8 @@ def check_stages(y: torch.Tensor, p: C.CQTParams, device) -> dict:
     realign exact; gemm and full within kernel B's 1e-4 (the raw GEMM of
     the int16 octave 0 within the int16 bar 1e-3: unnormalized PCM sums);
     full equal to the production kernel B's rows of that octave."""
-    res = {"err": 0.0, "ms": {}, "plain_ms": {}, "bound_ms": 0.0,
-           "ops_ms": 0.0}
+    res = {"err": 0.0, "ms": {}, "card_ms": {}, "plain_ms": {},
+           "bound_ms": 0.0, "ops_ms": 0.0}
     g = np.random.default_rng(4)
     small = torch.from_numpy(pcm16(g.uniform(-0.6, 0.6, (3, 16000))
                                    .astype(np.float32))).to(device)
@@ -1989,9 +2072,11 @@ def check_stages(y: torch.Tensor, p: C.CQTParams, device) -> dict:
         def run(fn, stage=stage):
             return lambda: [fn(*a, stage) for a in octs]
         res["ms"][stage] = time_ms(run(K.octave_response_stage))
+        res["card_ms"][stage] = graph_ms(run(K.octave_response_stage))
         res["plain_ms"][stage] = time_ms(run(K.octave_response_stage_plain))
     log("[7 probes] #6 kernel B stages, 8 octaves at serving geometry: "
-        + ", ".join(f"{s} {res['ms'][s]:.4f} ms (plain "
+        + ", ".join(f"{s} {res['ms'][s]:.4f} ms (card "
+                    f"{res['card_ms'][s]:.4f}, plain "
                     f"{res['plain_ms'][s]:.4f})" for s in K.STAGES)
         + f"; max|d| gemm/full {res['err']:.3g}; full == kernel B; bound "
         f"{res['bound_ms']:.4f} ms")
@@ -2014,9 +2099,11 @@ def check_transpose_pad(y: torch.Tensor) -> dict:
     lfull = PC.transpose_pad_geometry(y, (y.shape[1] // 4410) * 4410, 512)
     res.update(bound((y.shape[1] + lfull) * y.shape[0] * y.element_size()))
     res["ms"] = time_ms(lambda: PC.transpose_pad(y, 256, lfull))
+    res["card_ms"] = graph_ms(lambda: PC.transpose_pad(y, 256, lfull))
     res["plain_ms"] = time_ms(lambda: PC.transpose_pad_plain(y, 256, lfull))
     log(f"[7 probes] #7 transpose_pad: int16 and f32 exact; serving int16 "
-        f"{res['ms']:.4f} ms vs plain {res['plain_ms']:.4f} ms")
+        f"{res['ms']:.4f} ms eager, {res['card_ms']:.4f} ms on the card, vs "
+        f"plain {res['plain_ms']:.4f} ms")
     return res
 
 
@@ -2040,14 +2127,18 @@ def check_launch_and_primitives(device) -> dict:
     res = {"launch_ms": time_ms(lambda: PC.launch_probe(x, 201)),
            "launch_plain_ms": time_ms(lambda: PC.launch_probe_plain(x, 201)),
            "graph_ms": time_ms(replay) / len(outs),
+           # torch.ones, #8's plain version, replayed from a CUDA graph
+           "ones_card_ms": graph_ms(lambda: PC.launch_probe_plain(x, 201)),
            "launch_bound": bound(201 * 8 * 128 * 4),
-           "prim_ms": 0.0, "prim_plain_ms": 0.0, "prim_bound_ms": 0.0}
+           "prim_ms": 0.0, "prim_card_ms": 0.0, "prim_plain_ms": 0.0,
+           "prim_bound_ms": 0.0}
     del replay, outs
     for name in PC.PRIMITIVES:
         xi = PC.primitive_input(name).to(device)
         check_exact(f"primitive {name}", PC.primitive(name, xi),
                     PC.primitive_plain(name, xi))
         res["prim_ms"] += time_ms(lambda: PC.primitive(name, xi))
+        res["prim_card_ms"] += graph_ms(lambda: PC.primitive(name, xi))
         res["prim_plain_ms"] += time_ms(lambda: PC.primitive_plain(name, xi))
         shape, _, out_shape = PC.PRIMITIVES[name]
         res["prim_bound_ms"] += bound(
@@ -2056,8 +2147,10 @@ def check_launch_and_primitives(device) -> dict:
     log(f"[7 probes] #8 launch_probe grid 201: {res['launch_ms']:.4f} ms vs "
         f"plain {res['launch_plain_ms']:.4f} ms; CUDA graph of "
         f"{probe_pallas_overhead.BURST} launches replayed exactly, "
-        f"{res['graph_ms']:.5f} ms per launch; #9 six primitives exact, "
-        f"{res['prim_ms']:.4f} ms vs plain {res['prim_plain_ms']:.4f} ms")
+        f"{res['graph_ms']:.5f} ms per launch (torch.ones "
+        f"{res['ones_card_ms']:.5f} ms on the card); #9 six primitives "
+        f"exact, {res['prim_ms']:.4f} ms eager, {res['prim_card_ms']:.4f} ms "
+        f"on the card, vs plain {res['prim_plain_ms']:.4f} ms")
     return res
 
 
@@ -2139,11 +2232,24 @@ def main() -> int:
             audio_io.write_wav(paths[-1], w, SR)
         srv = serve_variants(paths, device)
         local = serve_local(paths, device)
+        local_ms = serve_local(paths, device, "multi_scale",
+                               multi_scale=True)
         mixed = serve_mixed(waves, td, device)
     with tempfile.TemporaryDirectory() as td:
         data = run_dataset(td, device)
     with tempfile.TemporaryDirectory() as td:
-        trained = run_train(td, device)
+        t0 = time.perf_counter()
+        roots = build_train_corpora(td)
+        log(f"[6 train] corpora written with data/synthetic.py in "
+            f"{time.perf_counter() - t0:.1f} s: {TRAIN_SONGS} training and "
+            f"{VAL_SONGS} validation songs, {CLIP_SECONDS} s PCM16 at {SR} "
+            f"Hz (scale walks)")
+        trained = run_train(roots, os.path.join(td, "default"), device,
+                            Config(fused_convstack=True, epochs=3))
+        trained_ms = run_train(roots, os.path.join(td, "multi_scale"),
+                               device, Config(fused_convstack=True, epochs=3,
+                                              multi_scale=True),
+                               tag="multi_scale: ")
 
     y = torch.from_numpy(np.stack([pcm16(w) for w in waves])).to(device)
     probe = {"window": check_window_copy(device),
@@ -2157,7 +2263,8 @@ def main() -> int:
     tpu = "audio_key_estimation_tpu/ops/"
     n = srv["default"]["launches"]
     served_by = {f"variant {v}": r for v, r in srv.items()} | {
-        "local": local, "mixed encodings": mixed}
+        "local": local, "local multi_scale": local_ms,
+        "mixed encodings": mixed}
     # each path's count of a kernel: the variants, local mode, the
     # mixed-encoding batch, and the dataset phase (its three groups, the
     # window_size songs, the cache reread)
@@ -2167,14 +2274,16 @@ def main() -> int:
         by_path[k] |= {"dataset": data["launches"][k],
                        "dataset frames=0": data["window_launches"][k],
                        "dataset cache reread": data["cache_launches"][k],
-                       "train import": trained["import_launches"][k]}
+                       "train import": trained["import_launches"][k],
+                       "train multi_scale import":
+                           trained_ms["import_launches"][k]}
     # the training phase: Trainer.fit (train steps and every validation),
     # the kernel C validation check, the checkpoint served back
     for k in n:
-        by_path[k] |= {"train fit": trained["fit_launches"][k],
-                       "train validation": trained["val_launches"][k],
-                       "train checkpoint served":
-                           trained["serve_launches"][k]}
+        for t, r in (("train", trained), ("train multi_scale", trained_ms)):
+            by_path[k] |= {f"{t} fit": r["fit_launches"][k],
+                           f"{t} validation": r["val_launches"][k],
+                           f"{t} checkpoint served": r["serve_launches"][k]}
     # the largest |d| of the served batches' own CQT and kernel C stacks
     # against their plain versions, over every served path
     served_cqt_d = max(r["held"]["cqt_d"] for r in served_by.values())
@@ -2241,7 +2350,7 @@ def main() -> int:
             m["window_copy"], 0.0, probe["window"]["ms"],
             probe["window"]["plain_ms"],
             {"bound_ms": probe["window"]["bound_ms"], "bound_by": "bytes"},
-            None),
+            None, card_ms=probe["window"]["card_ms"]),
         row("cqt_response stages (#6, load/realign/gemm/full, 8 octaves; "
             "ms summed)", "cqt_response.cu",
             "scripts/probe_cqt_kernel_stages.py:59",
@@ -2249,19 +2358,21 @@ def main() -> int:
             sum(st["plain_ms"].values()),
             {"bound_ms": st["bound_ms"],
              "bound_by": "operations" if 2 * st["ops_ms"] > st["bound_ms"]
-             else "bytes"}, None),
+             else "bytes"}, None, card_ms=sum(st["card_ms"].values())),
         row("transpose_pad (#7)", "transpose_pad.cu",
             "scripts/experiment_transpose_kernel.py:82", m["transpose_pad"],
             0.0, probe["transpose"]["ms"], probe["transpose"]["plain_ms"],
-            probe["transpose"], None),
+            probe["transpose"], None, card_ms=probe["transpose"]["card_ms"]),
         row("launch_probe (#8, grid 201)", "probe_launch.cu",
             "scripts/probe_pallas_overhead.py:50", m["launch_probe"], 0.0,
             sm["launch_ms"], sm["launch_plain_ms"], sm["launch_bound"],
-            sm["launch_plain_ms"], library="torch.ones (the plain version)"),
+            sm["launch_plain_ms"], library="torch.ones (the plain version)",
+            card_ms=sm["graph_ms"], library_card_ms=sm["ones_card_ms"]),
         row("primitives (#9, six probes; ms summed)", "probe_primitives.cu",
             "scripts/probe_pallas_primitives.py:42-151", m["primitive"], 0.0,
             sm["prim_ms"], sm["prim_plain_ms"],
-            {"bound_ms": sm["prim_bound_ms"], "bound_by": "bytes"}, None),
+            {"bound_ms": sm["prim_bound_ms"], "bound_by": "bytes"}, None,
+            card_ms=sm["prim_card_ms"]),
     ]
     for k in kernels:
         card = (f", card {k['card_ms']:.4f} ms "

@@ -118,8 +118,14 @@ def test_reference_key_naming_loads(pair):
 
 @pytest.mark.parametrize("field", ["multi_scale"])
 def test_unported_variants_raise(field):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        PitchClassNet(CFG.replace(**{field: True}))
+    """PitchClassNet refuses a multi-scale Config (it would be one tower of
+    the ensemble), naming PitchClassNetMulti, which build_model builds."""
+    from audio_key_estimation_torch.models import (PitchClassNetMulti,
+                                                   build_model)
+    cfg = CFG.replace(**{field: True})
+    with pytest.raises(ValueError, match="PitchClassNetMulti"):
+        PitchClassNet(cfg)
+    assert isinstance(build_model(cfg), PitchClassNetMulti)
 
 
 def test_seeded_init_is_deterministic():

@@ -152,14 +152,19 @@ def test_cli_defaults_to_cuda(tmp_path):
 
 def test_unported_entry_points_raise(tmp_path):
     """What the port cannot serve raises, naming why: a JAX run
-    directory (orbax best_model/) names its conversion, a multi_scale
-    model its ROADMAP item."""
-    from audio_key_estimation_torch.models import PitchClassNet
+    directory (orbax best_model/) names its conversion, the CQT kernels
+    on the CPU the CUDA they need. A multi_scale Config builds the
+    ensemble (PitchClassNetMulti) for global and local serving."""
+    from audio_key_estimation_torch.models import (PitchClassNet,
+                                                   PitchClassNetMulti,
+                                                   build_model)
     (tmp_path / "best_model").mkdir()
     with pytest.raises(ValueError, match="state_dict_from_jax"):
         KeyEstimator.from_checkpoint(str(tmp_path))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        KeyEstimator(CFG.replace(multi_scale=True), {}, device="cpu")
+    multi = CFG.replace(multi_scale=True)
+    est = KeyEstimator(multi, build_model(multi).state_dict(), device="cpu")
+    assert isinstance(est.model, PitchClassNetMulti)
+    assert isinstance(est.local_model, PitchClassNetMulti)
     with pytest.raises(ValueError, match="CUDA"):
         KeyEstimator(CFG.replace(use_pallas_cqt="on"),
                      PitchClassNet(CFG).state_dict(), device="cpu")

@@ -473,6 +473,18 @@ def test_trainer_refuses_cuda_without_cuda(kw, rng):
 
 
 def test_multi_scale_raises():
-    with pytest.raises(NotImplementedError, match="multi_scale"):
-        trainer.Trainer(Config(**TINY, multi_scale=True), [], [],
-                        device="cpu")
+    """A multi-scale Config trains the ensemble: the Trainer accepts it and
+    create_train_state builds PitchClassNetMulti (Adam over both towers
+    and nothing else); only PitchClassNet itself raises for it, naming
+    the ensemble."""
+    from audio_key_estimation_torch.models import (PitchClassNet,
+                                                   PitchClassNetMulti)
+    cfg = Config(**TINY, multi_scale=True)
+    assert trainer.Trainer(cfg, [], [], device="cpu").cfg.multi_scale
+    state = trainer.create_train_state(cfg, 0, "cpu")
+    assert isinstance(state.model, PitchClassNetMulti)
+    n = sum(p.numel() for p in state.model.parameters())
+    assert n == sum(p.numel() for g in state.optimizer.param_groups
+                    for p in g["params"])
+    with pytest.raises(ValueError, match="PitchClassNetMulti"):
+        PitchClassNet(cfg)

@@ -50,7 +50,9 @@ def test_reference_named_loads_p2pc_conv():
 
 
 def test_only_multi_scale_is_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """PitchClassNet refuses multi_scale (the ensemble's job, named in the
+    error) and builds every other variant."""
+    with pytest.raises(ValueError, match="PitchClassNetMulti"):
         PitchClassNet(variant_config("default").replace(multi_scale=True))
     for field in ("resblock", "denseblock", "p2pc_conv", "pc2p_mem",
                   "stay_sixth", "only_semitones", "max_pool", "local",
