@@ -28,13 +28,17 @@ Layering (bottom -> top), module names mirror the JAX package:
               ingest) and its ctypes binding, built at first use
   data/       audio decode and batch ingest, the MP3 decoder, corpus
               loaders, synthetic corpora, KeyDataset, batch prefetch
-  utils/      the key-signature map, label builders, metrics logging
+  utils/      the key-signature map, label builders, metrics logging,
+              throughput meter and torch.profiler trace
   train/      loss, MIREX metrics, Adam with per-epoch decay,
-              checkpoints, the Trainer
+              checkpoints, the Trainer (data-parallel under torchrun)
+  parallel/   the device mesh for sharded serving, the process group
+              and the collectives for DDP training
+  scrape/     the YouTube corpus scraper (gated live backend)
   config.py   the Config dataclass and its argparse helpers
   predict.py  KeyEstimator serving API
-  cli/        train, eval, predict and equivariance entry points,
-              dataset wiring
+  cli/        train, eval, predict, equivariance and scrape entry
+              points, dataset wiring
 """
 
 __version__ = "0.1.0"

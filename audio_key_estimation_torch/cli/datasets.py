@@ -1,7 +1,10 @@
 """Shared corpus wiring for the train/eval entry points: every corpus
 loader rooted at cfg.data_root, and the reference's train/val/test
 splits as `KeyDataset`s computed on `device` (the card by default;
-without CUDA it raises unless device="cpu")."""
+without CUDA it raises unless device="cpu"). Under a data-parallel
+process group every rank imports the same splits (rank 0 writes the
+feature cache first, data/dataset.py) and rank 0 alone reports
+progress."""
 
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ import os
 from ..config import Config
 from ..data import loaders as L
 from ..data.dataset import KeyDataset
+from ..parallel.mesh import data_world
 
 
 def build_loaders(cfg: Config):
@@ -42,14 +46,16 @@ def build_train_val(cfg: Config, device="cuda"):
     ld = build_loaders(cfg)
     train = KeyDataset(genre=cfg.genre, cfg=cfg, device=device)
     val = KeyDataset(genre=cfg.genre, cfg=cfg, device=device)
+    progress = data_world()[0] == 0
     if cfg.debug:
-        train.import_data(ld["giantsteps_mtg_debug"])
-        val.import_data(ld["giantsteps_mtg_debug"])
+        train.import_data(ld["giantsteps_mtg_debug"], progress=progress)
+        val.import_data(ld["giantsteps_mtg_debug"], progress=progress)
     else:
         train.import_data(ld["giantsteps_mtg_key"], ld["gtzan"],
                           ld["keyfinder"], ld["tonality"], ld["guitarset"],
-                          ld["ultimate_songs"])
-        val.import_data(ld["winterreise"], ld["giantsteps_key"])
+                          ld["ultimate_songs"], progress=progress)
+        val.import_data(ld["winterreise"], ld["giantsteps_key"],
+                        progress=progress)
     return train, val
 
 
@@ -64,6 +70,7 @@ def build_test_sets(cfg: Config, device="cuda"):
             ("McGillBillboard", ["mcgill_billboard"]),
             ("Isophonics", ["beatles", "king_carole", "queen", "zweieck"])):
         ds = KeyDataset(genre=cfg.genre, cfg=cfg, device=device)
-        ds.import_data(*[ld[m] for m in members])
+        ds.import_data(*[ld[m] for m in members],
+                       progress=data_world()[0] == 0)
         sets[name] = ds
     return sets

@@ -9,7 +9,9 @@ runtime fields: merge_eval_config), rebuilds the reference's validation
 and test sets and prints the per-set MIREX breakdown. --torch_ckpt
 evaluates a torch state_dict (a reference best_model.pt) with the
 command line's architecture flags instead. Without CUDA it raises unless
---device cpu.
+--device cpu. Under torchrun (`torchrun --nproc_per_node N -m
+audio_key_estimation_torch.cli.eval ...`) each rank evaluates its rows
+of every batch, the sums are all-reduced and rank 0 prints.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import os
 from ..config import (Config, add_config_args, config_from_args,
                       merge_eval_config)
 from ..models.convert import load_state_dict
+from ..parallel.mesh import check_mesh_shape, data_world, start_data_parallel
 from ..train import checkpoints as ckpt_lib
 from ..train.trainer import (TrainState, create_train_state, evaluate,
                              make_eval_step, resolve_device)
@@ -53,20 +56,25 @@ def main(argv=None):
                              "best_model.pt)")
     add_device_arg(parser)
     args = parser.parse_args(argv)
-    device = resolve_device(args.device)
+    device = start_data_parallel(resolve_device(args.device))
+    rank, world = data_world()
     cfg, state = load_state(config_from_args(args), args, device)
+    check_mesh_shape(cfg.mesh_shape, world)
     eval_step = make_eval_step(cfg)
+    say = print if rank == 0 else (lambda *a: None)
 
     _, val_data = build_train_val(cfg, device=device)
-    print("Result of Validation set")
-    print(evaluate(eval_step, state, val_data, max(cfg.batch_size, 1)))
+    say("Result of Validation set")
+    say(evaluate(eval_step, state, val_data, max(cfg.batch_size, 1),
+                 sharded=world > 1))
     results = {}
     if not cfg.no_test and not cfg.debug:
         for name, ds in build_test_sets(cfg, device=device).items():
-            print(f"Result of {name} set")
+            say(f"Result of {name} set")
             results[name] = evaluate(eval_step, state, ds,
-                                     max(cfg.batch_size, 1))
-            print(results[name])
+                                     max(cfg.batch_size, 1),
+                                     sharded=world > 1)
+            say(results[name])
     return results
 
 

@@ -9,7 +9,10 @@ cache -> key, signature, tonic and genre labels (utils/labels.py, global
 or local) -> bucket-padded `batches()`.
 
 `KeyDataset` computes on the card unless the caller asks for the CPU
-(device="cpu"); without CUDA the default raises.
+(device="cpu"); without CUDA the default raises. Under a data-parallel
+process group every rank imports the same corpus: with the cache on,
+rank 0 imports first and writes the cache, and the other ranks read it
+after a barrier (no two ranks write one file).
 """
 
 from __future__ import annotations
@@ -25,6 +28,7 @@ import torch
 from ..config import Config
 from ..ops.cqt import CQTParams, reference_hop
 from ..ops.frontend import compute_cqt, feature_bins, use_cuda_kernels
+from ..parallel.mesh import barrier, data_world
 from ..utils import labels as L
 from . import audio_io
 from .loaders import DatasetLoader
@@ -101,6 +105,10 @@ class KeyDataset:
     def import_data(self, *loaders: DatasetLoader, seed: int = 0,
                     progress: bool = True):
         """Collect, shuffle, decode, CQT and label every file."""
+        rank, world = data_world()
+        shared = world > 1 and self.use_cache
+        if shared and rank != 0:
+            barrier()   # rank 0 has written the feature cache
         work = []
         for loader in loaders:
             if not isinstance(loader, DatasetLoader):
@@ -113,6 +121,8 @@ class KeyDataset:
         rng = random.Random(seed)
         rng.shuffle(work)
         self._preprocess(work, progress=progress)
+        if shared and rank == 0:
+            barrier()
         self.seq_length_max = max((it["mel"].shape[-1] for it in self.items),
                                   default=0)
         if progress:
@@ -212,7 +222,7 @@ class KeyDataset:
                     mel = mel[:, :cfg.window_size]
                     if mel2 is not None:
                         mel2 = mel2[:, :cfg.window_size]
-                if self.use_cache:
+                if self.use_cache and data_world()[0] == 0:
                     try:
                         np.savez_compressed(
                             self.cache_path(fn, cfg.bins_per_octave), mel=mel)

@@ -26,6 +26,7 @@ from ..ops import convstack_cuda as CS
 from ..ops import equivariant as eqv
 from ..ops import pooling
 from ..ops.convstack_cuda import LEAKY_SLOPE
+from ..parallel.mesh import all_reduce_
 
 
 def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
@@ -113,13 +114,19 @@ class BatchNorm(nn.Module):
     biased variance over (N, H, W), in float32, as flax's nn.BatchNorm
     does (torch's own BatchNorm2d would take the unbiased variance);
     `update_stats` False leaves them as they are (a recomputation under
-    activation checkpointing)."""
+    activation checkpointing).
+
+    Under data parallelism (`data_shard`, set by set_data_shard) the
+    training-mode statistics are those of the global micro-batch, every
+    rank's rows together, as the JAX package's sharded step takes them
+    (_GlobalBatchNorm). Eval mode is the same either way."""
 
     def __init__(self, features: int, eps: float = 1e-5,
                  momentum: float = 0.1):
         super().__init__()
         self.eps, self.momentum = eps, momentum
         self.update_stats = True
+        self.data_shard = None      # (rank, world) under data parallelism
         self.weight = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("running_mean", torch.zeros(features))
@@ -127,6 +134,8 @@ class BatchNorm(nn.Module):
 
     def forward(self, x):
         dt = x.dtype
+        if self.training and self.data_shard is not None:
+            return self._global_batch_norm(x).to(dt)
         if self.training:
             if self.update_stats:
                 with torch.no_grad():
@@ -141,21 +150,95 @@ class BatchNorm(nn.Module):
                             self.running_var.to(dt), self.weight.to(dt),
                             self.bias.to(dt), False, 0.0, self.eps)
 
+    def _global_batch_norm(self, x):
+        """Normalize by the global micro-batch's statistics
+        (_GlobalBatchNorm); the running statistics take its mean and
+        biased variance, identical on every rank."""
+        y, mean, var = _GlobalBatchNorm.apply(
+            x.to(torch.promote_types(x.dtype, torch.float32)), self.weight,
+            self.bias, self.eps)
+        if self.update_stats:
+            with torch.no_grad():
+                m = self.momentum
+                self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+                self.running_var.mul_(1.0 - m).add_(var, alpha=m)
+        return y
+
+
+class _GlobalBatchNorm(torch.autograd.Function):
+    """Training-mode BatchNorm over every rank's rows, in float32 (float64
+    for a float64 x), as SyncBatchNorm computes it (and on the CPU too): the per-channel count
+    and sum all-reduced, then the sum of squared deviations from the
+    global mean (two passes, no cancellation); y = (x - mean) * w /
+    sqrt(var + eps) + b with the biased variance. The backward
+    all-reduces the per-channel sums of dy and dy * (x - mean) once and
+    applies BatchNorm's fused input gradient; the weight and bias
+    gradients stay this rank's (DDP sums them over the ranks)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps):
+        c = x.shape[1]
+        s = torch.cat([x.sum(dim=(0, 2, 3)),
+                       x.new_full((1,), x.numel() // c)])
+        all_reduce_(s)
+        n = s[c:]
+        mean = s[:c] / n
+        xmu = x - mean[None, :, None, None]
+        var = all_reduce_((xmu * xmu).sum(dim=(0, 2, 3))) / n
+        invstd = torch.rsqrt(var + eps)
+        y = xmu * (invstd * weight)[None, :, None, None] \
+            + bias[None, :, None, None]
+        ctx.save_for_backward(xmu, invstd, weight, n)
+        ctx.mark_non_differentiable(mean, var)
+        return y, mean, var
+
+    @staticmethod
+    def backward(ctx, dy, _mean, _var):
+        xmu, invstd, weight, n = ctx.saved_tensors
+        c = xmu.shape[1]
+        local = torch.cat([dy.sum(dim=(0, 2, 3)),
+                           (dy * xmu).sum(dim=(0, 2, 3))])
+        grad_bias, grad_weight = local[:c], local[c:] * invstd
+        g = all_reduce_(local.clone()) / n
+        grad_x = (dy - g[:c][None, :, None, None]
+                  - xmu * (g[c:] * invstd * invstd)[None, :, None, None]) \
+            * (invstd * weight)[None, :, None, None]
+        return grad_x, grad_weight, grad_bias, None
+
 
 def leaky_relu(x):
     return F.leaky_relu(x, LEAKY_SLOPE)
 
 
-def dropout(x: torch.Tensor, rate: float,
-            generator: torch.Generator | None) -> torch.Tensor:
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None,
+            shard: tuple | None = None) -> torch.Tensor:
     """Inverted dropout (flax nn.Dropout, F.dropout): keep each element
     with probability 1 - rate, scaled by 1 / (1 - rate), the mask drawn
-    from `generator`, which must live on x's device."""
+    from `generator`, which must live on x's device. With shard (rank,
+    world), x is one rank's rows of a global micro-batch: the mask of
+    the whole micro-batch is drawn (every rank's generator holds one
+    state) and this rank keeps its rows, so the masks are those of one
+    process over the global micro-batch."""
     if generator is None:
         raise RuntimeError("dropout in training mode needs an explicit "
                            "generator (PitchClassNet.set_dropout_generator)")
-    keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    if shard is None:
+        keep = torch.empty_like(x).bernoulli_(1.0 - rate, generator=generator)
+    else:
+        rank, world = shard
+        n = x.shape[0]
+        keep = x.new_empty((n * world, *x.shape[1:])).bernoulli_(
+            1.0 - rate, generator=generator)[rank * n:(rank + 1) * n]
     return x * keep / (1.0 - rate)
+
+
+def set_data_shard(model: nn.Module, shard: tuple | None) -> None:
+    """Train `model` as rank `shard[0]` of `shard[1]` data-parallel
+    ranks (None: alone): its BatchNorms take the global micro-batch's
+    statistics and its dropout masks are the global micro-batch's."""
+    for m in model.modules():
+        if isinstance(m, (BatchNorm, DenseLayer)):
+            m.data_shard = shard
 
 
 class ResBlock(nn.Module):
@@ -204,6 +287,7 @@ class DenseLayer(nn.Module):
                                      padding=(k // 2, k // 2), bias=False)
         self.drop_rate = drop_rate
         self.generator = None   # set by PitchClassNet.set_dropout_generator
+        self.data_shard = None  # set by set_data_shard
 
     def forward(self, x):
         y = self.conv1(leaky_relu(self.norm1(x)))
@@ -211,7 +295,7 @@ class DenseLayer(nn.Module):
         # dropout on the new features (models.py:516-517), training only
         if not (self.training and self.drop_rate > 0):
             return y
-        return dropout(y, self.drop_rate, self.generator)
+        return dropout(y, self.drop_rate, self.generator, self.data_shard)
 
 
 class DenseBlock(nn.Module):

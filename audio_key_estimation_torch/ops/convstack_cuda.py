@@ -74,12 +74,13 @@ def unpack_weight(wp: torch.Tensor) -> torch.Tensor:
     return wp.reshape(KERNEL, 2 * 4, C, C).permute(2, 3, 0, 1)[..., :KERNEL]
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=64)
 def _pack_map(cins: tuple, device: str):
     """pack_stack's gather: for each element of the packed (L, 7, 4, 2, 8,
     8) weights, its index in pack_stack's flat tensor (a zero, then every
     layer's weight, then the biases), or 0 where pack_weight pads; and
-    that leading zero."""
+    that leading zero. Cached per stack geometry and device (a mesh of 8
+    cards serving the multi-scale ensemble holds 16)."""
     codes, n = [], 1
     for ci in cins:
         w = torch.arange(n, n + C * ci * KERNEL * KERNEL, dtype=torch.float64)

@@ -361,12 +361,13 @@ class Constants(NamedTuple):
     scales: torch.Tensor   # (octaves, bpo) float32
 
 
-@functools.lru_cache(maxsize=16)
+@functools.lru_cache(maxsize=64)
 def _constants(p: CQTParams, n_frames: int, in_scale: float,
                device: str) -> Constants:
     """Device-resident bank (with its TF32 split), window starts and
-    scales of one geometry (cached: serving repeats a few bucket
-    geometries)."""
+    scales of one geometry on one device (cached: serving repeats a few
+    bucket geometries; a mesh of 8 cards serving the multi-scale
+    ensemble's two CQTs at three buckets holds 48)."""
     dev = torch.device(device)
     bank = make_bank(bank_matrix(p).T, dev)
     starts = torch.tensor([_frame_starts(p.hop, o, n_frames)

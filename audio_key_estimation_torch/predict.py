@@ -9,7 +9,11 @@ window (`predict_files_local`, the same weights run in local mode). On a
 CUDA device each CQT runs through kernels A and B
 (`Config.use_pallas_cqt` "auto"/"on") and, with `Config.fused_convstack`,
 every Pitch2Pitch stack that kernel C's gate takes
-(`models/blocks.ConvStack.fusable`) through kernel C.
+(`models/blocks.ConvStack.fusable`) through kernel C. With a mesh
+(`parallel.mesh.make_mesh`) serving is data-parallel over its devices,
+as the JAX estimator's is over a jax Mesh: one replica of the model per
+device, each batch's rows split evenly, shard i's CQT and model on
+device i.
 
 Key naming: the 12-dim sigmoid output is matched to the nearest
 KEY_SIGNATURE_MAP row (circle of fifths) exactly like the MIREX scorer
@@ -33,6 +37,7 @@ from .models.convert import load_state_dict
 from .models.multi_scale import build_model
 from .ops.cqt import CQTParams, reference_hop
 from .ops.frontend import compute_cqt, feature_bins, use_cuda_kernels
+from .parallel.mesh import Mesh, replicate, shard_batch
 from .train import checkpoints as ckpt_lib
 from .utils.key_signatures import KEY_SIGNATURE_MAP
 
@@ -102,17 +107,28 @@ class KeyEstimator:
 
     def __init__(self, cfg: Config, state_dict: Mapping, *,
                  device: Union[str, torch.device] = "cuda",
-                 bucket_seconds=(60, 180, 420)):
+                 bucket_seconds=(60, 180, 420),
+                 mesh: Optional[Mesh] = None):
         """state_dict: the port's / the reference's torch state_dict or
         `models.convert.state_dict_from_jax` of JAX variables (numpy
         arrays or tensors). Serving runs on the card; the CPU only when
         the caller asks for it (device="cpu"). Without CUDA the default
         raises, and so do weights of the other architecture than
-        cfg.multi_scale names (the ensemble's `model1.`/`model2.` keys)."""
+        cfg.multi_scale names (the ensemble's `model1.`/`model2.` keys).
+
+        mesh: serve data-parallel over mesh.devices (then `device` is the
+        mesh's first; without one, a mesh of `device` alone): one
+        replica per device, each batch padded with zero rows of
+        seq_length 1 to a multiple of the mesh size (the JAX estimator's
+        _mesh_pad) and split evenly; every shard is launched before any
+        is read back, and the pad rows dropped."""
+        if mesh is not None:
+            device = mesh.devices[0]
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError(f"device={device!r}: CUDA is not available "
                                "(pass device='cpu' to serve on the CPU)")
+        self.mesh = Mesh((self.device,)) if mesh is None else mesh
         # the global model; predict_*_local run local_model, the same
         # weights in local mode (as the JAX estimator applies one set of
         # variables to both)
@@ -128,12 +144,14 @@ class KeyEstimator:
                 "ensemble structure")
         self.use_kernels = use_cuda_kernels(self.cfg.use_pallas_cqt,
                                             self.device)
-        self.model = build_model(self.cfg)
-        load_state_dict(self.model, state_dict)
-        self.local_model = build_model(self.cfg.replace(local=True))
-        self.local_model.load_state_dict(self.model.state_dict())
-        self.model.to(self.device).eval()
-        self.local_model.to(self.device).eval()
+        model = build_model(self.cfg)
+        load_state_dict(model, state_dict)
+        local_model = build_model(self.cfg.replace(local=True))
+        local_model.load_state_dict(model.state_dict())
+        self.replicas = replicate(model, self.mesh)
+        self.local_replicas = replicate(local_model, self.mesh)
+        self.model, self.local_model = self.replicas[0], \
+            self.local_replicas[0]
         self.bucket_seconds = bucket_seconds
 
     # ------------------------------------------------------------------
@@ -159,16 +177,27 @@ class KeyEstimator:
                 return b
         return float(np.ceil(seconds / 60.0) * 60)
 
-    def make_batch(self, waveforms, sr: int):
-        """Bucket-padded signal batch + true seq lengths, on the device."""
+    def host_batch(self, waveforms, sr: int):
+        """Bucket-padded signal batch + true seq lengths on the host,
+        padded by zero rows of seq_length 1 to a multiple of the mesh
+        size."""
         cfg = self.cfg
         longest = max(len(w) for w in waveforms)
         hop = reference_hop(sr, cfg.frames, cfg.window_size, longest)
         pad_len = int(self._bucket_len(longest / sr) * sr)
+        n = len(waveforms)
+        n_rows = -(-n // self.mesh.size) * self.mesh.size
         # int16 when every waveform is raw PCM16 (half the H2D bytes;
         # normalization runs inside the CQT), else float32
-        batch = audio_io.pack_batch(waveforms, pad_len)
-        seq = np.array([1 + len(w) // hop for w in waveforms], np.int32)
+        batch = audio_io.pack_batch(waveforms, pad_len, n_rows=n_rows)
+        seq = np.ones(n_rows, np.int32)
+        seq[:n] = [1 + len(w) // hop for w in waveforms]
+        return batch, seq, hop
+
+    def make_batch(self, waveforms, sr: int):
+        """host_batch's signal batch and seq lengths on the device (the
+        mesh's first)."""
+        batch, seq, hop = self.host_batch(waveforms, sr)
         return (torch.from_numpy(batch).to(self.device),
                 torch.from_numpy(seq).to(self.device), hop)
 
@@ -185,13 +214,31 @@ class KeyEstimator:
             for bpo in feature_bins(cfg))
 
     @torch.inference_mode()
+    def outputs(self, waveforms: Sequence[np.ndarray], sr: int,
+                local: bool = False) -> tuple:
+        """(the model's outputs as numpy arrays, one row per waveform,
+        the seq lengths): the global model, or the local one (which takes
+        no lengths). The batch goes to the mesh's first device and each
+        shard on to its own, where its CQT and replica run, all launched
+        before the first read-back; a one-device mesh runs the whole
+        batch as one shard."""
+        batch, seq, hop = self.make_batch(waveforms, sr)
+        models = self.local_replicas if local else self.replicas
+        shards = [model(*self.features(b, sr, hop), *(() if local else (s,)))
+                  for model, b, s in zip(models,
+                                         shard_batch(batch, self.mesh),
+                                         shard_batch(seq, self.mesh))]
+        n = len(waveforms)
+        out = [torch.cat([o[k].cpu() for o in shards]).numpy()[:n]
+               for k in range(len(shards[0]))]
+        return out, seq[:n].cpu().numpy()
+
+    @torch.inference_mode()
     def predict_waveforms(self, waveforms: Sequence[np.ndarray], sr: int,
                           return_raw: bool = False) -> List[Prediction]:
-        batch, seq, hop = self.make_batch(waveforms, sr)
-        out = self.model(*self.features(batch, sr, hop), seq)
-        key = out[0].cpu().numpy()
-        tonic = out[1].cpu().numpy()
-        genre = out[2].cpu().numpy() if len(out) > 2 else None
+        out, _ = self.outputs(waveforms, sr)
+        key, tonic = out[0], out[1]
+        genre = out[2] if len(out) > 2 else None
         preds = []
         for i in range(len(waveforms)):
             info = key_name(key[i], tonic[i])
@@ -234,12 +281,9 @@ class KeyEstimator:
         seconds, advancing 1/frames seconds per step (the local head's
         sliding max over frame windows)."""
         cfg = self.cfg
-        batch, seq_t, hop = self.make_batch(waveforms, sr)
-        out = self.local_model(*self.features(batch, sr, hop))
-        key = out[0].cpu().numpy()                   # (N, T', 12)
-        tonic = out[1].cpu().numpy()
-        genre = out[2].cpu().numpy() if len(out) > 2 else None
-        seq = seq_t.cpu().numpy()
+        out, seq = self.outputs(waveforms, sr, local=True)
+        key, tonic = out[0], out[1]                  # (N, T', 12)
+        genre = out[2] if len(out) > 2 else None
         win_s, step_s = cfg.loc_window_size, 1.0 / cfg.frames
         preds = []
         for i in range(len(waveforms)):

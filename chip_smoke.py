@@ -78,6 +78,25 @@ non-zero):
              torch.profiler); the best checkpoint served back through
              KeyEstimator.from_checkpoint within 1e-3 of the trainer's
              own eval outputs;
+  6b dp     data parallelism on the one card: KeyEstimator(mesh=
+             make_mesh(devices=[cuda:0, cuda:0])) serves 16 and 15 clips
+             (one zero pad row) through the default model and 16 through
+             the averaging ensemble, two replicas, each shard's CQT and
+             model launched before any read-back: launches twice one
+             batch's (A 14 / B 2 / C 6; ensemble 28 / 4 / 12), each
+             shard's own CQTs and kernel C stacks held against their plain
+             versions, keys and tonics within rtol 2e-4 / atol 2e-5 of the
+             unsharded kernel path; ThroughputMeter over one sharded call,
+             trace() of one sharded batch naming the akt operators;
+             Trainer.fit at world 1 on NCCL (file:// store) equal to the
+             fit without a group; two spawned ranks on gloo (NCCL refuses
+             two ranks on one device): one train step of 8 x 2 songs (4
+             rows a rank) against one process (loss, gradients, BatchNorm
+             statistics, parameters after Adam, ranks equal), the step's
+             wall and all-reduce rows under torch.profiler, and
+             evaluate(sharded=True) over the 16 validation songs through
+             kernel C against one process's; a rank that fails or
+             outlives its join limit fails the run;
   7 probes   the probe and experiment kernels (ops/probes_cuda.py and
              kernel B's stage split) against their plain versions at a
              small geometry and at the serving geometry, exact for the
@@ -100,6 +119,7 @@ import struct
 import sys
 import tempfile
 import time
+import traceback
 
 import numpy as np
 import torch
@@ -120,6 +140,8 @@ from audio_key_estimation_torch.ops import cqt_cuda as K
 from audio_key_estimation_torch.ops import equivariant
 from audio_key_estimation_torch.ops.frontend import feature_bins, torch_dtype
 from audio_key_estimation_torch.ops import probes_cuda as PC
+from audio_key_estimation_torch.parallel.mesh import (init_data_parallel,
+                                                      make_mesh, rank_rows)
 from audio_key_estimation_torch.predict import KeyEstimator
 from audio_key_estimation_torch.scripts import (experiment_transpose_kernel,
                                                 probe_cqt_kernel_stages,
@@ -132,6 +154,7 @@ from audio_key_estimation_torch.train import trainer as T
 from audio_key_estimation_torch.train.loss import compute_loss
 from audio_key_estimation_torch.train.metrics import mirex_categories
 from audio_key_estimation_torch.utils.key_signatures import KEY_SIGNATURE_MAP
+from audio_key_estimation_torch.utils.profiling import ThroughputMeter, trace
 
 SR = 22050
 CLIP_SECONDS = 120
@@ -826,13 +849,15 @@ def counted(fn):
 def served(est: KeyEstimator, fn):
     """counted(fn), recording what the served batch gave the kernels:
     each est.features call's (batch, sr, hop) and log-CQTs (kernels A and
-    B; two for the multi-scale ensemble), and the input of every ConvStack
-    that kernel C's gate takes, in every tower.
+    B; two for the multi-scale ensemble; one call per shard of the mesh),
+    and the input of every ConvStack that kernel C's gate takes, in every
+    tower and every replica.
     Returns (result, launches, wall seconds, features, stacks)."""
     feats, stacks = [], []
+    nets = [*est.replicas, *est.local_replicas]
     hooks = [m.register_forward_pre_hook(
         lambda m, args: stacks.append((m, args[0])))
-        for net in (est.model, est.local_model) for m in net.modules()
+        for net in nets for m in net.modules()
         if isinstance(m, ConvStack) and m.fusable]
     features = est.features
 
@@ -1954,12 +1979,391 @@ def run_train(roots: dict, td: str, device, cfg: Config,
         f"{serve_launches['conv7_layer']}; key |d| against the trainer's "
         f"eval outputs of that state {serve_d:.3g} (bar 1e-3); e.g. "
         f"{preds[0].key!r}; wall {serve_wall * 1e3:.1f} ms")
-    return {"import_launches": import_launches,
+    return {"import_launches": import_launches, "sets": (train, val),
             "fit_launches": fit_launches,
             "val_launches": {k: v["launches"][k] + v2["launches"][k]
                              for k in v["launches"]},
             "serve_launches": serve_launches,
             "step_ms": med * 1e3, "peak_mib": peak / 2**20}
+
+
+# ---------------------------------------------------------------------------
+# phase 6b: data parallelism
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_JOIN_S = 300.0
+
+
+def check_sharded(name: str, preds, ref) -> dict:
+    """Sharded outputs against the unsharded kernel path on the same
+    weights: key probabilities and tonic logits within rtol 2e-4, atol
+    2e-5 (tests/test_predict.py:168-170), and the keys' spread across
+    clips at least 0.05 (agreement's floor)."""
+    res = {}
+    for k in ("key_probs", "tonic_logits"):
+        got = torch.from_numpy(np.stack([getattr(q, k) for q in preds]))
+        want = torch.from_numpy(np.stack([getattr(q, k) for q in ref]))
+        if got.shape != want.shape or not torch.isfinite(got).all():
+            raise AssertionError(f"{name}: {k} {tuple(got.shape)} vs "
+                                 f"{tuple(want.shape)}")
+        res[k] = check_close(f"{name}: {k}", got, want, 2e-4, 2e-5)
+    key = np.stack([q.key_probs for q in ref])
+    res["key_spread"] = float((key.max(0) - key.min(0)).max())
+    res["names_equal"] = sum(a.key == b.key for a, b in zip(preds, ref))
+    if res["key_spread"] < 0.05:
+        raise AssertionError(f"{name}: the keys spread {res['key_spread']}")
+    return res
+
+
+def serve_sharded(paths, device) -> dict:
+    """KeyEstimator(mesh=make_mesh(devices=[cuda:0, cuda:0])): two
+    replicas on the one card, each batch split in two shards, each shard's
+    CQT (kernels A, B) and model (kernel C) launched before any read-back.
+    The default model on 16 clips and on 15 (one zero pad row of
+    seq_length 1), the averaging ensemble on 16: launches twice one
+    batch's (A 14 / B 2 / C 6; the ensemble 28 / 4 / 12); each shard's own
+    CQTs and kernel C stacks held against their plain versions
+    (hold_served); keys and tonics against the unsharded kernel path on
+    the same weights (check_sharded). Then ThroughputMeter over one
+    sharded call and trace() of one sharded batch, whose trace must name
+    the akt operators."""
+    mesh = make_mesh(devices=[device] * DP_WORLD)
+    res = {}
+    for name, kw, counts in (("default", {}, (16, 15)),
+                             ("multi_scale", dict(multi_scale=True), (16,))):
+        cfg = Config(fused_convstack=True, **kw)
+        weights = seeded_weights(cfg)
+        est = KeyEstimator(cfg, weights, device=device, mesh=mesh)
+        unsharded = KeyEstimator(cfg, weights, device=device)
+        for n in counts:
+            clips_ = paths[:n]
+            est.predict_files(clips_)          # warm-up
+            unsharded.predict_files(clips_)
+            preds, launches, wall, feats, stacks = served(
+                est, lambda: est.predict_files(clips_, return_raw=True))
+            want = {k: v * mesh.size
+                    for k, v in expected_launches(unsharded).items()}
+            if launches != want or len(feats) != mesh.size:
+                raise AssertionError(f"sharded {name} x {n}: launches "
+                                     f"{launches} in {len(feats)} shards, "
+                                     f"want {want}")
+            ref, _, wall_ref = counted(
+                lambda: unsharded.predict_files(clips_, return_raw=True))
+            agree = check_sharded(f"sharded {name} x {n}", preds, ref)
+            held = hold_served(f"sharded {name} x {n}", est, feats, stacks)
+            rows = sorted({tuple(b.shape) for b, _, _, _ in feats})
+            del feats, stacks
+            tag = f"{name} x {n}"
+            res[tag] = {"launches": launches, **agree, "held": held,
+                        "wall_ms": wall * 1e3,
+                        "unsharded_wall_ms": wall_ref * 1e3}
+            log(f"[6b dp] sharded serving {tag} clips over {mesh.size} "
+                f"replicas on {device} (shards {rows}): launches A "
+                f"{launches['cascade_pad']} B {launches['octave_response']} "
+                f"C {launches['conv7_layer']}; against the unsharded kernel "
+                f"path key |d| {agree['key_probs']:.3g}, tonic |d| "
+                f"{agree['tonic_logits']:.3g} (rtol 2e-4, atol 2e-5), "
+                f"{agree['names_equal']}/{n} names equal, keys spread "
+                f"{agree['key_spread']:.3f}; wall {wall * 1e3:.1f} ms, "
+                f"unsharded {wall_ref * 1e3:.1f} ms ({card_line()})")
+            log(held_text(f"sharded {tag}", held).replace("[4 serve]",
+                                                          "[6b dp]"))
+        if name == "default":
+            meter = ThroughputMeter()
+            torch.cuda.synchronize()
+            meter.start()
+            est.predict_files(paths)
+            torch.cuda.synchronize()
+            meter.stop(len(paths) * CLIP_SECONDS)
+            with tempfile.TemporaryDirectory() as td:
+                with trace(td):
+                    est.predict_files(paths)
+                text = open(os.path.join(td, "trace.json")).read()
+            akt = sorted({n for n in ("akt::cascade_pad",
+                                      "akt::octave_response", "akt::conv7")
+                          if n in text})
+            if len(akt) != 3:
+                raise AssertionError(f"trace names {akt} of the akt "
+                                     "operators")
+            res["meter"] = meter.audio_min_per_sec
+            log(f"[6b dp] ThroughputMeter over one sharded call of "
+                f"{len(paths)} clips: {meter.audio_min_per_sec:.1f} "
+                f"audio-min/s ({meter.per_chip():.1f} per card); trace() of "
+                f"one sharded batch: {len(text)} bytes naming "
+                f"{', '.join(akt)} ({card_line()})")
+        del est, unsharded
+        torch.cuda.empty_cache()
+    return res
+
+
+def fit_world1(train, val, cfg: Config, td: str, device) -> dict:
+    """Trainer.fit (one epoch of one step) under a process group of world
+    1 on NCCL (file:// store) against the same fit without a group: the
+    same path, so the losses, the BatchNorm running statistics and the
+    parameters agree within phase 6's bars, and the validation launches
+    kernel C as it does without a group."""
+    runs = {}
+    for tag in ("world 1", "no group"):
+        if tag == "world 1":
+            init_data_parallel(device, init_method=f"file://{td}/world1",
+                               rank=0, world_size=1)
+        try:
+            tr = T.Trainer(cfg, train, val, device=device)
+            (state, hist), launches, wall = counted(lambda: tr.fit(seed=0))
+        finally:
+            if torch.distributed.is_initialized():
+                torch.distributed.destroy_process_group()
+        runs[tag] = {"hist": hist, "launches": launches, "wall": wall,
+                     "state": {k: v.detach().cpu() for k, v in
+                               state.model.state_dict().items()}}
+    a, b = runs["world 1"], runs["no group"]
+    # two fits on the card differ where cuDNN's backward sums in another
+    # order from run to run: phase 6's bars, and 2.1 x lr for a parameter
+    # whose gradient at the rounding floor flips Adam's first update
+    loss_rel = max(abs(a["hist"][-1][k] - b["hist"][-1][k])
+                   / abs(b["hist"][-1][k]) for k in ("train_loss",
+                                                     "val_loss"))
+    sa, sb = a["state"], b["state"]
+    param_d = max(float((sa[k] - v).abs().max()) for k, v in sb.items()
+                  if not k.endswith(("running_mean", "running_var")))
+    var_rel = max(float(((sa[k] - v).abs() / v).max())
+                  for k, v in sb.items() if k.endswith("running_var"))
+    mean_ratio = max(float(((sa[k] - v).abs() / (1e-4 * sb[k.replace(
+        "running_mean", "running_var")].sqrt())).max())
+        for k, v in sb.items() if k.endswith("running_mean"))
+    if not (loss_rel <= 1e-4 and param_d <= 2.1 * cfg.lr
+            and var_rel <= 1e-4 and mean_ratio <= 1) \
+            or a["launches"] != b["launches"] \
+            or not a["launches"]["conv7_layer"]:
+        raise AssertionError(f"world-1 fit vs no group: loss rel {loss_rel},"
+                             f" parameters |d| {param_d}, running variances"
+                             f" rel {var_rel}, means {mean_ratio}, launches "
+                             f"{a['launches']} vs {b['launches']}")
+    log(f"[6b dp] Trainer.fit at world 1 on NCCL: 1 epoch of 1 step "
+        f"({cfg.batch_size} x {cfg.acc_grad} songs), train_loss "
+        f"{a['hist'][-1]['train_loss']:.6f}, val_loss "
+        f"{a['hist'][-1]['val_loss']:.6f}; against the fit without a group: "
+        f"losses rel {loss_rel:.3g} (bar 1e-4), parameters |d| "
+        f"{param_d:.3g} (bar 2.1 x lr), running variances rel "
+        f"{var_rel:.3g} (bar 1e-4), means at {mean_ratio:.3g} of 1e-4 x "
+        f"their std; validation launches C {a['launches']['conv7_layer']} "
+        f"as without it; wall {a['wall']:.2f} s vs {b['wall']:.2f} s")
+    return {"launches": a["launches"]}
+
+
+def dp_rank(rank: int, world: int, store: str, out: str, cfg: Config,
+            weights: dict, batch: dict, val) -> None:
+    """One rank of the world-2 check (spawned; gloo on cuda:0, which NCCL
+    refuses to share between ranks): one data-parallel train step on its
+    rows of every micro-batch, a second one timed and a third under
+    torch.profiler (its all-reduce rows), then evaluate(sharded=True) over
+    `val` through kernel C on the step's starting weights. Writes its
+    results to out/rank<rank>.pt, or its traceback to .err."""
+    try:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        device = init_data_parallel("cuda", backend="gloo",
+                                    init_method=f"file://{store}", rank=rank,
+                                    world_size=world, local_rank=0,
+                                    timeout_s=DP_JOIN_S)
+        state = T.create_train_state(cfg, 0, device)
+        state.model.load_state_dict(weights)
+        T.data_parallel(state)
+        rows = rank_rows(batch["mel"].shape[1], rank, world)
+        local = T.to_device({k: np.ascontiguousarray(v[:, rows])
+                             for k, v in batch.items()}, device)
+        step = T.make_train_step(cfg, 1, seed=0)
+        loss = T.global_losses([step(state, local)["loss"]])[0]
+        res = {"loss": loss,
+               "grads": {k: p.grad.detach().cpu() for k, p in
+                         state.model.named_parameters()},
+               "params": {k: p.detach().cpu() for k, p in
+                          state.model.named_parameters()},
+               "buffers": {k: b.detach().cpu() for k, b in
+                           state.model.named_buffers()}}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        step(state, local)
+        torch.cuda.synchronize()
+        res["step_ms"] = (time.perf_counter() - t0) * 1e3
+        act = torch.profiler.ProfilerActivity
+        t0 = time.perf_counter()
+        with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+            step(state, local)
+            torch.cuda.synchronize()
+        res["profiled_step_ms"] = (time.perf_counter() - t0) * 1e3
+        res["all_reduce"] = {
+            a.key: (a.count, a.cpu_time_total / 1e3)
+            for a in prof.key_averages() if "all_reduce" in a.key
+            or "allreduce" in a.key}
+        fresh = T.create_train_state(cfg, 0, device)
+        fresh.model.load_state_dict(weights)
+        res["evaluate"], res["eval_launches"], _ = counted(
+            lambda: T.evaluate(T.make_eval_step(cfg), fresh, val,
+                               cfg.batch_size, sharded=True))
+        torch.save(res, os.path.join(out, f"rank{rank}.pt"))
+    except BaseException:
+        with open(os.path.join(out, f"rank{rank}.err"), "w") as f:
+            f.write(traceback.format_exc())
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def spawn_world2(td: str, cfg: Config, weights: dict, batch: dict,
+                 val) -> list:
+    """dp_rank on DP_WORLD spawned processes; any rank that fails, exits
+    non-zero or outlives DP_JOIN_S fails the run (every process is
+    stopped first)."""
+    import torch.multiprocessing as mp
+    out = os.path.join(td, "ranks")
+    os.makedirs(out)
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=dp_rank, args=(
+        r, DP_WORLD, os.path.join(out, "store"), out, cfg, weights, batch,
+        val)) for r in range(DP_WORLD)]
+    for p in procs:
+        p.start()
+    deadline = time.monotonic() + DP_JOIN_S
+    for p in procs:
+        p.join(max(deadline - time.monotonic(), 0.0))
+    hung = [r for r, p in enumerate(procs) if p.is_alive()]
+    for p in procs:
+        if p.is_alive():
+            p.kill()
+        p.join()
+    errs = [open(os.path.join(out, f"rank{r}.err")).read()
+            for r in range(DP_WORLD)
+            if os.path.exists(os.path.join(out, f"rank{r}.err"))]
+    codes = [p.exitcode for p in procs]
+    if hung or errs or any(codes):
+        raise AssertionError(f"world-2 ranks: hung {hung}, exit codes "
+                             f"{codes}\n" + "\n".join(errs))
+    return [torch.load(os.path.join(out, f"rank{r}.pt"), weights_only=False)
+            for r in range(DP_WORLD)]
+
+
+def run_dp(waves, td: str, device, train, val) -> dict:
+    """Phase 6b: sharded serving of 16 x 120 s WAVs (the 180 s bucket, T =
+    901) with the profiling helpers, then training at world 1 on NCCL and
+    at world 2 on gloo, on phase 6's default-width corpus."""
+    t0 = time.perf_counter()
+    paths = []
+    for i, w in enumerate(waves):
+        paths.append(os.path.join(td, f"dp_{i}.wav"))
+        audio_io.write_wav(paths[-1], w, SR)
+    out = {"serve": serve_sharded(paths, device),
+           "fit1": fit_world1(train, val, Config(fused_convstack=True,
+                                                 epochs=1), td, device),
+           "world2": train_world2(train, val, Config(fused_convstack=True),
+                                  td, device)}
+    log(f"[6b dp] phase wall {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+def train_world2(train, val, cfg: Config, td: str, device) -> dict:
+    """The world-2 step and evaluate (dp_rank, spawned) against one
+    process on the card, same weights (seeded_weights) and rows: micro
+    batch 8 (4 rows a rank) x acc_grad 2. Bars: loss rtol 1e-5; running
+    variances rtol 1e-6, running means within 1e-6 of the running std;
+    gradients at phase 6's bar (scale_ratio 1e-3, 1e-3); parameters after
+    Adam within 2.1 x lr (tests/test_train.py:108-113); every rank's
+    parameters equal; evaluate's aggregates within rtol 1e-4, atol 1e-5
+    (tests/test_train.py:158-160), each rank launching kernel C 3 times a
+    batch."""
+    cfg = cfg.replace(batch_size=8, acc_grad=2)
+    weights = {k: v.cpu() for k, v in seeded_weights(cfg).items()}
+    b = next(train.batches(cfg.batch_size * cfg.acc_grad, shuffle=True,
+                           seed=0, drop_last=True))
+    b.pop("valid")
+    batch = {k: np.reshape(v, (cfg.acc_grad, cfg.batch_size) + v.shape[1:])
+             for k, v in b.items()}
+    t0 = time.perf_counter()
+    ranks = spawn_world2(td, cfg, weights, batch, val)
+    spawn_s = time.perf_counter() - t0
+    single = T.create_train_state(cfg, 0, device)
+    single.model.load_state_dict(weights)
+    step = T.make_train_step(cfg, 1, seed=0)
+    tb = T.to_device(batch, device)
+    loss = float(step(single, tb)["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step(T.create_train_state(cfg, 0, device), tb)   # a timed step
+    torch.cuda.synchronize()
+    single_ms = (time.perf_counter() - t0) * 1e3
+    want = {"grads": {k: p.grad.detach().cpu() for k, p in
+                      single.model.named_parameters()},
+            "params": {k: p.detach().cpu() for k, p in
+                       single.model.named_parameters()},
+            "buffers": {k: b_.detach().cpu() for k, b_ in
+                        single.model.named_buffers()}}
+    fresh = T.create_train_state(cfg, 0, device)
+    fresh.model.load_state_dict(weights)
+    ref_eval, ref_launches, _ = counted(lambda: T.evaluate(
+        T.make_eval_step(cfg), fresh, val, cfg.batch_size))
+    r0 = ranks[0]
+    res = {"loss": r0["loss"], "single_loss": loss,
+           "loss_rel": abs(r0["loss"] - loss) / abs(loss),
+           "grad": scale_ratio(r0["grads"], want["grads"], 1e-3, 1e-3),
+           "param_d": max(float((r0["params"][k] - v).abs().max())
+                          for k, v in want["params"].items()),
+           "var_rel": max(float(((r0["buffers"][k] - v).abs() / v).max())
+                          for k, v in want["buffers"].items()
+                          if k.endswith("running_var")),
+           "mean_ratio": max(float(((r0["buffers"][k] - v).abs() / (
+               1e-6 * want["buffers"][k.replace("running_mean",
+                                                "running_var")].sqrt())
+                                    ).max())
+                             for k, v in want["buffers"].items()
+                             if k.endswith("running_mean"))}
+    same = all(torch.equal(r[part][k], v) for r in ranks[1:]
+               for part in ("params", "buffers")
+               for k, v in r0[part].items())
+    eval_d = {k: abs(r0["evaluate"][k] - v) / max(abs(v), 1e-30)
+              for k, v in ref_eval.items()}
+    eval_ok = all(abs(r["evaluate"][k] - v) <= 1e-5 + 1e-4 * abs(v)
+                  for r in ranks for k, v in ref_eval.items())
+    n_batches = -(-len(val) // cfg.batch_size)
+    per_batch = fused_layers(single.model)
+    launches_ok = all(r["eval_launches"] == ref_launches for r in ranks) \
+        and ref_launches["conv7_layer"] == per_batch * n_batches
+    if not (res["loss_rel"] <= 1e-5 and res["grad"]["ratio"] <= 1
+            and res["param_d"] <= 2.1 * cfg.lr and res["var_rel"] <= 1e-6
+            and res["mean_ratio"] <= 1 and same and eval_ok
+            and launches_ok):
+        raise AssertionError(f"world-2 step/evaluate against one process: "
+                             f"{res}, ranks equal {same}, evaluate "
+                             f"{[r['evaluate'] for r in ranks]} vs "
+                             f"{ref_eval}, launches "
+                             f"{[r['eval_launches'] for r in ranks]}")
+    ar = r0["all_reduce"]
+    log(f"[6b dp] world 2 on one card (gloo, 2 spawned ranks, "
+        f"{spawn_s:.1f} s with start-up): one step of {cfg.batch_size} x "
+        f"{cfg.acc_grad} songs (4 rows a rank) against one process: loss "
+        f"{res['loss']:.6f} vs {loss:.6f} (rel {res['loss_rel']:.3g}, bar "
+        f"1e-5); gradients at {res['grad']['ratio']:.3g} of their bar, the "
+        f"worst {res['grad']['name']}; parameters after Adam |d| "
+        f"{res['param_d']:.3g} (bar 2.1 x lr = {2.1 * cfg.lr:.3g}); running "
+        f"variances rel {res['var_rel']:.3g} (bar 1e-6), means at "
+        f"{res['mean_ratio']:.3g} of 1e-6 x their std; the ranks' "
+        f"parameters equal; evaluate over {len(val)} songs "
+        f"({n_batches} batches, launches a rank A "
+        f"{r0['eval_launches']['cascade_pad']} B "
+        f"{r0['eval_launches']['octave_response']} C "
+        f"{r0['eval_launches']['conv7_layer']}, one process C "
+        f"{ref_launches['conv7_layer']}) within rtol 1e-4 / "
+        f"atol 1e-5, largest rel |d| "
+        + ", ".join(f"{k} {v:.2g}" for k, v in sorted(
+            eval_d.items(), key=lambda kv: -kv[1])[:3])
+        + f"; the DP step {r0['step_ms']:.1f} ms wall, rank 0 (one process "
+        f"{single_ms:.1f} ms; {r0['profiled_step_ms']:.1f} ms under "
+        f"torch.profiler, all-reduce rows "
+        + ", ".join(f"{k} x{n} {t:.1f} ms host" for k, (n, t) in ar.items())
+        + f") ({card_line()})")
+    return {"eval_launches": r0["eval_launches"], "step_ms": r0["step_ms"],
+            "single_ms": single_ms}
 
 
 # ---------------------------------------------------------------------------
@@ -2250,6 +2654,8 @@ def main() -> int:
                                device, Config(fused_convstack=True, epochs=3,
                                               multi_scale=True),
                                tag="multi_scale: ")
+        dp = run_dp(waves, td, device, *trained.pop("sets"))
+        trained_ms.pop("sets")
 
     y = torch.from_numpy(np.stack([pcm16(w) for w in waves])).to(device)
     probe = {"window": check_window_copy(device),
@@ -2284,10 +2690,19 @@ def main() -> int:
             by_path[k] |= {f"{t} fit": r["fit_launches"][k],
                            f"{t} validation": r["val_launches"][k],
                            f"{t} checkpoint served": r["serve_launches"][k]}
+        # phase 6b: sharded serving (two replicas), the world-1 fit and
+        # each world-2 rank's sharded evaluate
+        by_path[k] |= {f"sharded {tag}": r["launches"][k]
+                       for tag, r in dp["serve"].items() if tag != "meter"}
+        by_path[k] |= {"dp world-1 fit": dp["fit1"]["launches"][k],
+                       "dp world-2 evaluate, each rank":
+                           dp["world2"]["eval_launches"][k]}
     # the largest |d| of the served batches' own CQT and kernel C stacks
-    # against their plain versions, over every served path
-    served_cqt_d = max(r["held"]["cqt_d"] for r in served_by.values())
-    served_c_d = max(r["held"]["c_d"] for r in served_by.values())
+    # against their plain versions, over every served path, shards too
+    held = [r["held"] for r in served_by.values()] + [
+        r["held"] for tag, r in dp["serve"].items() if tag != "meter"]
+    served_cqt_d = max(h["cqt_d"] for h in held)
+    served_c_d = max(h["c_d"] for h in held)
     st, sm = probe["stages"], probe["small"]
 
     def row(name, source, replaces, launches, err, ms, plain_ms, b,

@@ -104,22 +104,35 @@ def test_port_serves_without_jax(tmp_path):
 
 def test_training_entry_points_import_no_jax():
     """Importing the train, eval and equivariance CLIs (and with them the
-    trainer, loss, metrics, optimizer, checkpoints, prefetch and logging)
-    in a fresh interpreter loads no jax, flax, optax or orbax module and
-    no module of the JAX package."""
+    trainer, loss, metrics, optimizer, checkpoints, prefetch and logging),
+    the data-parallel mesh, the profiling helpers, the scraper and its
+    CLI, and the tests' data-parallel worker module (which spawned ranks
+    import without the tests' conftest) in a fresh interpreter loads no
+    jax, flax, optax or orbax module and no module of the JAX package."""
     code = textwrap.dedent("""
         import json, sys
         from audio_key_estimation_torch.cli import equivariance, eval, train
         from audio_key_estimation_torch.train import (checkpoints, loss,
                                                       metrics, optim, trainer)
+        from audio_key_estimation_torch import parallel
+        from audio_key_estimation_torch.parallel import mesh
+        from audio_key_estimation_torch.utils import profiling
+        from audio_key_estimation_torch.scrape import song_lists, youtube
+        from audio_key_estimation_torch.cli import scrape
+        import torch_dp_workers
         print(json.dumps(sorted(sys.modules)))
     """)
-    env = dict(os.environ, PYTHONPATH=REPO)
+    env = dict(os.environ, PYTHONPATH=os.pathsep.join(
+        [REPO, os.path.join(REPO, "tests")]))
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=REPO, env=env, timeout=300)
     assert res.returncode == 0, res.stderr
     mods = json.loads(res.stdout.strip().splitlines()[-1])
-    assert "audio_key_estimation_torch.train.trainer" in mods
+    assert {"audio_key_estimation_torch.train.trainer",
+            "audio_key_estimation_torch.parallel.mesh",
+            "audio_key_estimation_torch.utils.profiling",
+            "audio_key_estimation_torch.scrape.youtube",
+            "torch_dp_workers"} <= set(mods)
     bad = [m for m in mods if m.split(".")[0] in (
         "jax", "jaxlib", "flax", "optax", "orbax", "audio_key_estimation_tpu")]
     assert not bad, bad
@@ -137,7 +150,8 @@ def _imported_modules(path: str) -> set:
 
 
 def _port_sources() -> list:
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "tests", "torch_dp_workers.py")]
     for root, dirs, names in os.walk(os.path.join(
             REPO, "audio_key_estimation_torch")):
         dirs[:] = [d for d in dirs if d not in ("_build", "__pycache__")]
@@ -148,9 +162,9 @@ def _port_sources() -> list:
 @pytest.mark.parametrize("path", _port_sources(),
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_port_sources_import_no_jax_package(path):
-    """No import statement of the port or of chip_smoke.py names the JAX
-    package, jax, flax, optax or orbax (comments and strings may name a
-    counterpart)."""
+    """No import statement of the port, of chip_smoke.py or of the tests'
+    data-parallel worker module names the JAX package, jax, flax, optax
+    or orbax (comments and strings may name a counterpart)."""
     bad = {m for m in _imported_modules(path)
            if m.split(".")[0] in ("audio_key_estimation_tpu", "jax", "jaxlib",
                                   "flax", "optax", "orbax")}
@@ -250,7 +264,9 @@ COPIES = [f"data/{n}" for n in (
     "_mp3_bands_lsf.py", "loaders.py", "synthetic.py", "short_songs.txt",
     "pipeline.py")] \
     + ["utils/labels.py", "utils/logging.py"] + [f"native/{n}" for n in (
-        "akx_native.cpp", "akx_mp3.cpp", "akx_decoded.h", "akx_mp3_tables.h")]
+        "akx_native.cpp", "akx_mp3.cpp", "akx_decoded.h", "akx_mp3_tables.h")]\
+    + [f"scrape/{n}" for n in ("__init__.py", "youtube.py", "song_lists.py")]\
+    + ["cli/scrape.py"]
 
 
 @pytest.mark.parametrize("rel", COPIES)
