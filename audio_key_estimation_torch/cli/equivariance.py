@@ -30,6 +30,7 @@ from ..models.convert import load_state_dict
 from ..ops.cqt import CQTParams, reference_hop
 from ..ops.frontend import compute_cqt, use_cuda_kernels
 from ..train.trainer import resolve_device
+from ..utils.precision import ieee_float32
 from .train import add_device_arg
 
 # row i of the stack: shift +12 .. -12 semitones
@@ -70,7 +71,7 @@ def shift_and_stack(cfg, mel: np.ndarray, seed: int = 0,
         load_state_dict(model, state_dict)
     model.to(device).eval()
     x = np.stack([shift_rows(mel, s) for s in SHIFTS])[..., None]
-    with torch.inference_mode():
+    with torch.inference_mode(), ieee_float32("equivariance"):
         key = model(torch.from_numpy(x).float().to(device))[0]
     return key.cpu().numpy()  # (25, 12)
 
@@ -93,7 +94,7 @@ def wav_cqt(path: str, cfg, device) -> np.ndarray:
                                            len(samples)),
                   bins_per_octave=36, octaves=cfg.octaves - 2)
     y = torch.from_numpy(np.asarray(samples, np.float32))[None].to(device)
-    with torch.inference_mode():
+    with torch.inference_mode(), ieee_float32("equivariance"):
         mel = compute_cqt(y, p, use_kernels=use_cuda_kernels(
             cfg.use_pallas_cqt, device), conv_dtype="float32")
     return mel[0].cpu().numpy()

@@ -30,6 +30,7 @@ from ..ops.cqt import CQTParams, reference_hop
 from ..ops.frontend import compute_cqt, feature_bins, use_cuda_kernels
 from ..parallel.mesh import barrier, data_world
 from ..utils import labels as L
+from ..utils.precision import ieee_float32
 from . import audio_io
 from .loaders import DatasetLoader
 
@@ -186,8 +187,9 @@ class KeyDataset:
 
     def _features(self, y: torch.Tensor, p: CQTParams) -> np.ndarray:
         """(B, L) signal batch on the device -> (B, n_bins, T) log1p-CQT
-        read back to the host."""
-        with torch.inference_mode():
+        read back to the host, float32 in IEEE float32
+        (utils/precision.ieee_float32)."""
+        with torch.inference_mode(), ieee_float32("KeyDataset._features"):
             return compute_cqt(y, p, use_kernels=self.use_kernels,
                                conv_dtype=self.cfg.cqt_conv_dtype
                                ).cpu().numpy()

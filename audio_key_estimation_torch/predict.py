@@ -40,6 +40,7 @@ from .ops.frontend import compute_cqt, feature_bins, use_cuda_kernels
 from .parallel.mesh import Mesh, replicate, shard_batch
 from .train import checkpoints as ckpt_lib
 from .utils.key_signatures import KEY_SIGNATURE_MAP
+from .utils.precision import ieee_float32
 
 NOTE_NAMES = ['C', 'C#', 'D', 'D#', 'E', 'F', 'F#', 'G', 'G#', 'A', 'A#', 'B']
 # major tonic of circle-of-fifths row i (0 = Cb); theoretical rows 15..20
@@ -214,6 +215,7 @@ class KeyEstimator:
             for bpo in feature_bins(cfg))
 
     @torch.inference_mode()
+    @ieee_float32("KeyEstimator.outputs")
     def outputs(self, waveforms: Sequence[np.ndarray], sr: int,
                 local: bool = False) -> tuple:
         """(the model's outputs as numpy arrays, one row per waveform,
@@ -221,7 +223,9 @@ class KeyEstimator:
         no lengths). The batch goes to the mesh's first device and each
         shard on to its own, where its CQT and replica run, all launched
         before the first read-back; a one-device mesh runs the whole
-        batch as one shard."""
+        batch as one shard. float32 work runs in IEEE float32
+        (utils/precision.ieee_float32), whatever the caller's TF32
+        settings."""
         batch, seq, hop = self.make_batch(waveforms, sr)
         models = self.local_replicas if local else self.replicas
         shards = [model(*self.features(b, sr, hop), *(() if local else (s,)))

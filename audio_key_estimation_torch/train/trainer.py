@@ -52,6 +52,7 @@ from ..models.blocks import set_data_shard
 from ..models.multi_scale import build_model
 from ..parallel.mesh import (all_reduce_, barrier, check_mesh_shape,
                              data_world, rank_rows)
+from ..utils.precision import ieee_float32
 from . import checkpoints as ckpt_lib
 from .loss import compute_loss, loss_from_sums, loss_share, loss_sums, \
     loss_totals
@@ -147,9 +148,12 @@ def make_train_step(cfg: Config, steps_per_epoch: int,
     the averaged gradients in each parameter's .grad. Under data
     parallelism (state.ddp) batch holds this rank's rows, the gradients
     are the global batch's and "loss" is this rank's share of the mean
-    micro loss: the shares add up to it over the ranks (global_losses)."""
+    micro loss: the shares add up to it over the ranks (global_losses).
+    float32 work runs in IEEE float32 (utils/precision.ieee_float32), as
+    in eval_step."""
     rng_seed = cfg.seed if seed is None else seed
 
+    @ieee_float32("train_step")
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         model, opt, ddp = state.model, state.optimizer, state.ddp
         net = model if ddp is None else ddp
@@ -212,6 +216,7 @@ def make_eval_step(cfg: Config):
     rank's loss_sums and loss_totals, (4,), for evaluate to all-reduce."""
 
     @torch.inference_mode()
+    @ieee_float32("eval_step")
     def eval_step(state: TrainState, batch, sharded: bool = False):
         model = state.model
         model.eval()

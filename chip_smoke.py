@@ -50,6 +50,17 @@ non-zero):
              local path); then one default-model
              batch of PCM16, float32 and 24-bit WAVs (a float32 batch
              through A, B and C), held the same way;
+  4b batch   the default model serving distinct clips through
+             KeyEstimator.predict_waveforms (predict_files after decode)
+             at B = 64, 256, 1024 in the 180 s bucket, 256 in the 60 s
+             and 64, 256 in the 420 s bucket: launches A 7 / B 1 / C 3;
+             peak device memory per batch and clip, the host's
+             MemAvailable, wall, pack + H2D, CQT and model ms,
+             audio-min/s; the first and last 16 rows served again in
+             batches of 16, and at those rows the batch's CQT and kernel
+             C stack against their plain versions and the keys against
+             the plain path; each kernel's card ms at that B beside its
+             bound;
   5 dataset  KeyDataset.import_data on corpora written with
              data/synthetic.py: 48 songs in 3 groups of 16 (120 s PCM16
              at 44.1 kHz; 120 s float32 and 24-bit WAV at 44.1 kHz with
@@ -77,7 +88,22 @@ non-zero):
              wall, peak memory, the step's device split by
              torch.profiler); the best checkpoint served back through
              KeyEstimator.from_checkpoint within 1e-3 of the trainer's
-             own eval outputs;
+             own eval outputs; then "remat" lines: one train step of the
+             denseblock variant with dropout 0.2 and of the default
+             model with remat against one without (loss, gradients,
+             BatchNorm statistics updated once, every dropout mask drawn
+             again alike in the recomputation, wall, peak memory);
+  4p precision  (run after phase 6, whose corpus it uses) no precision
+             is set for the process, so every phase runs under torch's
+             defaults, where cuDNN computes float32 convolutions as
+             TF32: the default, resblock and bf16 models' forward on
+             phase 4's batch, the dataset's plain CQT and one train step
+             of 64 songs, each computed directly with TF32 allowed and
+             in IEEE float32 (|d| against the float32 bars, ms both
+             ways); then KeyEstimator.outputs, train_step, eval_step and
+             KeyDataset._features with TF32 allowed globally must give
+             the IEEE numbers (utils/precision.ieee_float32), each
+             logging once the settings it was called under;
   6b dp     data parallelism on the one card: KeyEstimator(mesh=
              make_mesh(devices=[cuda:0, cuda:0])) serves 16 and 15 clips
              (one zero pad row) through the default model and 16 through
@@ -112,8 +138,11 @@ Imports only torch, numpy and the port (no JAX).
 
 from __future__ import annotations
 
+import contextlib
+import functools
 import gc
 import json
+import logging
 import os
 import struct
 import sys
@@ -130,7 +159,7 @@ from audio_key_estimation_torch.data import audio_io, loaders, synthetic
 from audio_key_estimation_torch.data.dataset import KeyDataset
 from audio_key_estimation_torch.data.dataset import \
     cache_path as dataset_cache_path
-from audio_key_estimation_torch.models import build_model
+from audio_key_estimation_torch.models import blocks, build_model
 from audio_key_estimation_torch.models.blocks import BatchNorm, ConvStack
 from audio_key_estimation_torch.native import binding
 from audio_key_estimation_torch.ops import _build
@@ -138,7 +167,9 @@ from audio_key_estimation_torch.ops import convstack_cuda as CS
 from audio_key_estimation_torch.ops import cqt as C
 from audio_key_estimation_torch.ops import cqt_cuda as K
 from audio_key_estimation_torch.ops import equivariant
-from audio_key_estimation_torch.ops.frontend import feature_bins, torch_dtype
+from audio_key_estimation_torch.ops.frontend import (compute_cqt,
+                                                     feature_bins,
+                                                     torch_dtype)
 from audio_key_estimation_torch.ops import probes_cuda as PC
 from audio_key_estimation_torch.parallel.mesh import (init_data_parallel,
                                                       make_mesh, rank_rows)
@@ -154,6 +185,8 @@ from audio_key_estimation_torch.train import trainer as T
 from audio_key_estimation_torch.train.loss import compute_loss
 from audio_key_estimation_torch.train.metrics import mirex_categories
 from audio_key_estimation_torch.utils.key_signatures import KEY_SIGNATURE_MAP
+from audio_key_estimation_torch.utils import precision
+from audio_key_estimation_torch.utils.precision import ieee_float32
 from audio_key_estimation_torch.utils.profiling import ThroughputMeter, trace
 
 SR = 22050
@@ -165,12 +198,12 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
-def clips(n: int = BATCH) -> list[np.ndarray]:
+def clips(n: int = BATCH, seconds: int = CLIP_SECONDS) -> list[np.ndarray]:
     """The bench corpus recipe (bench.py make_corpus): deterministic
-    2-minute two-partial tones plus noise, as the int16 PCM that
-    audio_io.write_wav stores."""
+    two-partial tones plus noise (2 minutes unless `seconds` says), as
+    the int16 PCM that audio_io.write_wav stores."""
     rng = np.random.default_rng(0)
-    t = np.arange(SR * CLIP_SECONDS) / SR
+    t = np.arange(SR * seconds) / SR
     out = []
     for i in range(n):
         f0 = 110.0 * 2 ** (i / 5)
@@ -368,12 +401,14 @@ def cqt_bounds(y, p, lay, stream_dtype, starts) -> tuple[dict, dict]:
     return a, bound(b_bytes, b_flops, TF32_FLOPS)
 
 
+@ieee_float32()
 def check_cqt_kernels(y: torch.Tensor, p: C.CQTParams) -> dict:
     """Kernel A on every octave step and kernel B's one launch on every
     octave, f32 and bf16 streams from int16 clips, each against its plain
     version on the same inputs; then the whole cqt_cuda against the plain
     cqt. Times, bounds and the library yardsticks on the serving
-    configuration (bf16 streams)."""
+    configuration (bf16 streams). The plain versions and the yardsticks
+    compute float32 in IEEE float32 (TF32 off, scoped to this call)."""
     n_fft = C.kernel_bank(p)["n_fft"]
     head = n_fft // 2
     B, L = y.shape
@@ -534,6 +569,7 @@ def stack_bytes(B: int, H: int, T: int, cin: int, n: int) -> int:
     return B * H * T * (cin * 4 + (n - 1) * 2 * 8 * 2 + 8 * 4)
 
 
+@ieee_float32()
 def check_conv_kernel(device) -> dict:
     """Kernel C on the layer-1 Pitch2Pitch stack 5->8->8->8 at
     (16, 288, 601): each layer within 1 bf16 ulp of its plain version on
@@ -541,7 +577,8 @@ def check_conv_kernel(device) -> dict:
     float32 out), the stack against the plain stack; the served function
     fused_convstack timed from its float32 NCHW input to its float32
     output, beside each layer alone, the 180 s bucket (T = 901) and
-    cuDNN's bf16 conv2d."""
+    cuDNN's bf16 conv2d. The plain stack in IEEE float32 (TF32 off,
+    scoped to this call)."""
     g = np.random.default_rng(1)
     B, H, T = BATCH, 288, 601
     layers = conv_layers(g, device)
@@ -657,6 +694,7 @@ def conv_library(plain_inputs, wp, bias) -> dict:
     return res
 
 
+@ieee_float32()
 def check_edge_geometries(device) -> None:
     """Small shapes off the main path: odd batches, other sample rates
     and bin counts (12 bins x 8 octaves, n_fft 128: the only_semitones
@@ -736,6 +774,7 @@ def check_edge_geometries(device) -> None:
 # phase 4: serve
 # ---------------------------------------------------------------------------
 
+@functools.cache
 def seeded_weights(cfg: Config) -> dict:
     """The weights of the model cfg describes (build_model: PitchClassNet,
     or the multi-scale ensemble) from torch.Generator seed 0, BatchNorm
@@ -875,12 +914,14 @@ def served(est: KeyEstimator, fn):
     return out, launches, wall, feats, stacks
 
 
+@ieee_float32()
 def hold_served(name: str, est: KeyEstimator, feats, stacks) -> dict:
     """The served batch's kernel work again on its own card tensors,
     against the plain versions: each of its log-CQTs (one per
     feature_bins entry) against the plain cqt at its own bins/octave at
     check_cqt's bars, and every stack kernel C took, in every tower, layer
-    by layer at check_conv7's bars (check_stack)."""
+    by layer at check_conv7's bars (check_stack). The plain versions in
+    IEEE float32, as the served path computes float32."""
     cfg = est.cfg
     sd = torch_dtype(cfg.cqt_conv_dtype)
     res = {"cqt_d": 0.0, "cqt_bins": [], "stacks": [], "c_d": 0.0,
@@ -1015,7 +1056,8 @@ def serve_variants(paths, device) -> dict:
                 "synchronize): " + ", ".join(f"{k} {v:.1f} ms"
                                              for k, v in stages.items()))
             log(f"[4 serve] default model stage on the card (torch.profiler,"
-                f" device rows only, TF32 for cuDNN {split['tf32']}): "
+                f" device rows only, cuDNN float32 convolutions "
+                f"{split['conv_fp32']}): "
                 f"{split['total_ms']:.3f} ms in {split['kernels']} kernels; "
                 f"kernel C {split['conv7_ms']:.3f} ms "
                 f"({split['conv7_ms'] / split['total_ms']:.1%}, "
@@ -1144,9 +1186,546 @@ def serve_mixed(waves, td: str, device) -> dict:
             "plain_wall_ms": wall_plain * 1e3, "held": held}
 
 
+# ---------------------------------------------------------------------------
+# phase 4p: float32 with TF32 allowed (torch's defaults) against IEEE
+# ---------------------------------------------------------------------------
+
+KEY_RTOL, KEY_ATOL = 1e-4, 1e-5       # model logits, f32 (key)
+TONIC_TOL = 1e-4                      # tonic, rtol and atol
+WAV_KEY, WAV_TONIC = 1e-3, 3e-3       # wav -> logits
+
+
+def float32_bars(got, ref) -> dict:
+    """(key, tonic) against a reference: |d| of each, the largest ratio
+    of |d| to the float32 logit bars (key rtol 1e-4 / atol 1e-5, tonic
+    1e-4 / 1e-4; above 1 is outside), and the ratio to the wav -> logits
+    bars (key 1e-3, tonic 3e-3)."""
+    (k, t), (kr, tr) = [[torch.as_tensor(np.asarray(a)).double()
+                         for a in x[:2]] for x in (got, ref)]
+    dk, dt = (k - kr).abs(), (t - tr).abs()
+    return {"key_d": float(dk.max()), "tonic_d": float(dt.max()),
+            "logit_ratio": max(
+                float((dk / (KEY_ATOL + KEY_RTOL * kr.abs())).max()),
+                float((dt / (TONIC_TOL + TONIC_TOL * tr.abs())).max())),
+            "wav_ratio": max(float(dk.max()) / WAV_KEY,
+                             float(dt.max()) / WAV_TONIC)}
+
+
+def bars_text(b: dict) -> str:
+    return (f"key |d| {b['key_d']:.3g}, tonic |d| {b['tonic_d']:.3g}; "
+            f"{b['logit_ratio']:.3g} x the float32 logit bars (rtol 1e-4 / "
+            f"atol 1e-5), {b['wav_ratio']:.3g} x the wav -> logits bars "
+            f"(key 1e-3, tonic 3e-3)")
+
+
+@contextlib.contextmanager
+def tf32_everywhere():
+    """TF32 for cuBLAS matmuls too (torch's defaults leave them IEEE), as
+    a user's `torch.backends.cuda.matmul.allow_tf32 = True` asks; the
+    process's settings restored after."""
+    matmul = torch.backends.cuda.matmul
+    prev = matmul.allow_tf32, matmul.fp32_precision
+    matmul.allow_tf32 = True
+    try:
+        yield
+    finally:
+        # the legacy flag, then the per-operator setting it overwrote
+        matmul.allow_tf32, matmul.fp32_precision = prev
+
+
+def both_ways(fn, reps: int = 10, ways=("tf32", "ieee")) -> dict:
+    """fn() under this process's settings (torch's defaults: cuDNN runs
+    float32 convolutions as TF32, cuBLAS matmuls in IEEE float32), under
+    ieee_float32 and, if asked, under tf32_everywhere, with the median
+    CUDA-event ms of each."""
+    ctx = {"tf32": contextlib.nullcontext, "ieee": ieee_float32,
+           "tf32_everywhere": tf32_everywhere}
+    out = {}
+    for way in ways:
+        with ctx[way]():
+            out[way] = fn()
+            out[way + "_ms"] = time_ms(fn, reps=reps, warmup=2)
+    return out
+
+
+def forward_both_ways(name: str, cfg: Config, waves, device) -> dict:
+    """The model of cfg (seeded weights) called directly on the served
+    batch's CQT (kernels A and B, which no flag governs), TF32 allowed and
+    IEEE: outputs against each other at the float32 bars, and the model
+    stage's ms both ways. Then KeyEstimator.outputs on the same clips with
+    TF32 allowed globally, which must give the IEEE numbers."""
+    est = KeyEstimator(cfg, seeded_weights(cfg), device=device)
+    with torch.inference_mode():
+        batch, seq, hop = est.make_batch(waves, SR)
+        mels = est.features(batch, SR, hop)
+        r = both_ways(lambda: [o.float().cpu() for o in est.model(*mels,
+                                                                  seq)])
+    r["bars"] = float32_bars(r["tf32"], r["ieee"])
+    entry = est.outputs(waves, SR)[0]
+    r["entry"] = float32_bars(entry, r["ieee"])
+    if r["entry"]["key_d"] > 1e-6 or r["entry"]["tonic_d"] > 1e-6:
+        raise AssertionError(f"{name}: KeyEstimator.outputs with TF32 "
+                             f"allowed is not the IEEE forward: "
+                             f"{r['entry']}")
+    log(f"[4p precision] {name} forward on {len(waves)} x "
+        f"{CLIP_SECONDS} s (T {mels[0].shape[2]}), TF32 allowed vs IEEE "
+        f"float32: {bars_text(r['bars'])}; model stage {r['tf32_ms']:.3f} "
+        f"ms TF32 allowed, {r['ieee_ms']:.3f} ms IEEE; "
+        f"KeyEstimator.outputs under TF32 allowed vs the IEEE forward: "
+        f"key |d| {r['entry']['key_d']:.3g}, tonic |d| "
+        f"{r['entry']['tonic_d']:.3g} (bar 1e-6) ({card_line()})")
+    return r
+
+
+def grad_step(cfg: Config, batch: dict, device) -> dict:
+    """One train step's loss and averaged gradients computed directly (no
+    entry point, so the caller's precision settings hold): acc_grad
+    micro-batches through trainer.forward, compute_loss and backward
+    from create_train_state(cfg, 0) (drop 0), no optimizer update.
+    Returns loss, gradients on the host and the wall (ms)."""
+    st = T.create_train_state(cfg, 0, device)
+    st.model.train()
+    acc = batch["mel"].shape[0]
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = []
+    for i in range(acc):
+        micro = {k: v[i] for k, v in batch.items()}
+        loss, _ = compute_loss(cfg, T.forward(st.model, cfg, micro), micro)
+        loss.backward()
+        losses.append(loss.detach())
+    loss = float(torch.stack(losses).mean())
+    wall = (time.perf_counter() - t0) * 1e3
+    return {"loss": loss, "ms": wall,
+            "grads": {k: p.grad.detach().cpu() / acc for k, p in
+                      st.model.named_parameters()}}
+
+
+def step_text(d: dict) -> str:
+    return (f"loss rel {d['loss_rel']:.3g}, gradients at "
+            f"{d['grad']['ratio']:.3g} of phase 6's bar (worst "
+            f"{d['grad']['name']} |d| {d['grad']['d']:.3g})")
+
+
+def train_both_ways(cfg: Config, batch: dict, val, device) -> dict:
+    """One train step of 64 songs (phase 6's first batch) computed
+    directly, TF32 allowed and IEEE (each twice: the second is timed, and
+    the two IEEE runs give the card's run-to-run spread): loss and
+    gradients against IEEE at phase 6's bars. Then the entry points with
+    TF32 allowed globally: train_step's loss and gradients must lie within
+    twice the IEEE spread (or 1e-3 of the bar), and eval_step's outputs
+    on the first validation batch must equal the IEEE eval forward's."""
+    tb = T.to_device(batch, device)
+    runs = {}
+    for way, ctx in (("tf32", contextlib.nullcontext),
+                     ("ieee", ieee_float32)):
+        with ctx():
+            runs[way] = [grad_step(cfg, tb, device) for _ in range(2)]
+    ieee = runs["ieee"][1]
+
+    def against(got):
+        return {"loss_rel": abs(got["loss"] - ieee["loss"]) / ieee["loss"],
+                "grad": scale_ratio(got["grads"], ieee["grads"], 1e-3,
+                                    1e-3)}
+    res = {"tf32": against(runs["tf32"][1]),
+           "rerun": against(runs["ieee"][0]),
+           "tf32_ms": runs["tf32"][1]["ms"], "ieee_ms": ieee["ms"]}
+    st = T.create_train_state(cfg, 0, device)
+    step = T.make_train_step(cfg, 1, seed=0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = float(step(st, tb)["loss"])
+    res["entry_ms"] = (time.perf_counter() - t0) * 1e3
+    res["entry"] = against({"loss": loss, "grads": {
+        k: p.grad.detach().cpu() for k, p in st.model.named_parameters()}})
+    spread = max(2 * res["rerun"]["grad"]["ratio"], 1e-3)
+    if res["entry"]["loss_rel"] > max(2 * res["rerun"]["loss_rel"], 1e-6) \
+            or res["entry"]["grad"]["ratio"] > spread:
+        raise AssertionError(f"train_step with TF32 allowed is not the "
+                             f"IEEE step: {res}")
+    eb = next(val.batches(cfg.batch_size))
+    eb["valid"] = eb["valid"].astype(np.float32)
+    eb = T.to_device(eb, device)
+    st = T.create_train_state(cfg, 0, device)
+    st.model.eval()
+    with torch.inference_mode():
+        outs = {}
+        for way, ctx in (("tf32", contextlib.nullcontext),
+                         ("ieee", ieee_float32)):
+            with ctx():
+                outs[way] = [o.cpu() for o in T.forward(st.model, cfg, eb)]
+    seen = []
+    h = st.model.register_forward_hook(
+        lambda m, a, out: seen.extend(o.cpu() for o in out))
+    try:
+        T.make_eval_step(cfg)(st, eb)
+    finally:
+        h.remove()
+    res["eval_tf32"] = float32_bars(outs["tf32"], outs["ieee"])
+    res["eval_entry"] = float32_bars(seen, outs["ieee"])
+    if res["eval_entry"]["key_d"] > 1e-6 or res["eval_entry"]["tonic_d"] \
+            > 1e-6:
+        raise AssertionError(f"eval_step with TF32 allowed is not the IEEE "
+                             f"forward: {res['eval_entry']}")
+    log(f"[4p precision] train step of {batch['mel'].shape[0]} x "
+        f"{batch['mel'].shape[1]} songs (phase 6's corpus) computed "
+        f"directly, TF32 allowed vs IEEE float32: "
+        + step_text(res["tf32"]) + f"; IEEE run to run: "
+        + step_text(res["rerun"]) + f"; step {res['tf32_ms']:.1f} ms "
+        f"TF32 allowed, {res['ieee_ms']:.1f} ms IEEE (forward and backward, "
+        f"no Adam); train_step under TF32 allowed vs IEEE: "
+        + step_text(res["entry"]) + f" (bar: twice the IEEE run to run,"
+        f" at least 1e-3), {res['entry_ms']:.1f} ms with Adam; eval forward "
+        f"TF32 allowed vs IEEE: {bars_text(res['eval_tf32'])}; eval_step "
+        f"under TF32 allowed vs the IEEE forward: key |d| "
+        f"{res['eval_entry']['key_d']:.3g}, tonic |d| "
+        f"{res['eval_entry']['tonic_d']:.3g} (bar 1e-6) ({card_line()})")
+    return res
+
+
+def features_both_ways(waves, device) -> dict:
+    """The dataset's CQT on the plain path (use_pallas_cqt "off": its
+    decimation and response are cuBLAS matmuls, which torch's defaults
+    keep in IEEE float32), directly under torch's defaults, with TF32
+    for matmuls too (tf32_everywhere) and IEEE; and through
+    KeyDataset._features under tf32_everywhere, which must give the IEEE
+    CQT."""
+    cfg = Config(use_pallas_cqt="off")
+    ds = KeyDataset(False, cfg, blacklist_path="", use_cache=False,
+                    device=device)
+    y = torch.from_numpy(np.stack(waves)).to(device)
+    p = C.CQTParams(sr=SR, hop=C.reference_hop(SR, cfg.frames))
+    with torch.inference_mode():
+        r = both_ways(lambda: compute_cqt(y, p, conv_dtype=cfg.cqt_conv_dtype
+                                          ).cpu(), reps=5,
+                      ways=("tf32", "tf32_everywhere", "ieee"))
+    with tf32_everywhere():
+        entry = torch.from_numpy(ds._features(y, p))
+    peak = float(r["ieee"].abs().max())
+    for way in ("tf32", "tf32_everywhere"):
+        r[way + "_d"] = float((r[way] - r["ieee"]).abs().max())
+    r["entry_d"] = float((entry - r["ieee"]).abs().max())
+    if r["entry_d"] > 1e-6 * peak:
+        raise AssertionError(f"KeyDataset._features with TF32 allowed: "
+                             f"|d| {r['entry_d']} from the IEEE CQT")
+    log(f"[4p precision] dataset CQT on the plain path ({len(waves)} x "
+        f"{CLIP_SECONDS} s, {cfg.cqt_conv_dtype} streams) against IEEE "
+        f"float32: max |d| {r['tf32_d']:.3g} under torch's defaults, "
+        f"{r['tf32_everywhere_d']:.3g} with TF32 for matmuls too (peak "
+        f"{peak:.3f}; bf16 stream bar 2% of it); {r['tf32_ms']:.3f}, "
+        f"{r['tf32_everywhere_ms']:.3f} and {r['ieee_ms']:.3f} ms IEEE; "
+        f"KeyDataset._features with TF32 for matmuls too vs IEEE: max |d| "
+        f"{r['entry_d']:.3g} (bar 1e-6 of the peak)")
+    return r
+
+
+class FlagLog(logging.Handler):
+    """Prints each entry point's one log line of the settings it ran
+    under (utils/precision)."""
+
+    def emit(self, record):
+        log(f"[4p precision] log: {record.getMessage()}")
+
+
+def run_precision(waves, first: dict, val, device) -> dict:
+    """Phase 4p: what TF32 does to float32 on the card, with no
+    process-wide setting (torch's defaults): the default model's, the
+    resblock variant's (cuDNN-heavy) and the bf16 model's forward on
+    phase 4's clips, the dataset's plain CQT, and one train step on phase
+    6's corpus, each computed directly both ways; then each entry point
+    (KeyEstimator.outputs, train_step, eval_step, KeyDataset._features)
+    with TF32 allowed globally, which must give the IEEE numbers."""
+    if precision.flags()["cudnn.conv"] != "tf32":
+        raise AssertionError(f"phase 4p needs torch's defaults, found "
+                             f"{precision.flags()}")
+    t0 = time.perf_counter()
+    waves = [pcm16(w) for w in waves]        # as phase 4's WAVs decode
+    res = {name: forward_both_ways(name, Config(fused_convstack=True, **kw),
+                                   waves, device)
+           for name, kw in (("default", {}),
+                            ("resblock", dict(resblock=True)),
+                            ("bf16", dict(dtype="bfloat16")))}
+    if res["bf16"]["bars"]["key_d"] > WAV_KEY:
+        raise AssertionError(f"bf16 model moved by TF32: {res['bf16']}")
+    res["features"] = features_both_ways(waves, device)
+    res["train"] = train_both_ways(Config(fused_convstack=True), first, val,
+                                   device)
+    log(f"[4p precision] phase wall {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phase 4b: served batches of 64-1024 clips in the 60, 180 and 420 s buckets
+# ---------------------------------------------------------------------------
+
+# (name, clip seconds, clips): the 180 s bucket at B = 64, 256 and the
+# JAX package's served 1024, the 60 s and 420 s buckets
+BATCHES = (("b64_180s", 120, 64), ("b256_180s", 120, 256),
+           ("b1024_180s", 120, 1024), ("b256_60s", 45, 256),
+           ("b64_420s", 400, 64), ("b256_420s", 400, 256))
+GAINS = (1.0, 0.8, 0.6, 0.45)
+ROW_SHIFT = 2749                       # samples between a base's rows
+
+
+def batch_rows(seconds: int, n: int) -> list[np.ndarray]:
+    """n distinct int16 clips of `seconds`: phase 4's 16 base tones made
+    2 s longer, each at 4 gains; row r is base r % 16 at gain
+    (r // 16) % 4 from sample (r // 64) * ROW_SHIFT, a view (no copy), so
+    the first rows of a larger batch are those of a smaller one."""
+    base = [[pcm16(w * g) for g in GAINS] for w in clips(BATCH, seconds + 2)]
+    L = seconds * SR
+    return [base[r % 16][(r // 16) % 4][(r // 64) * ROW_SHIFT:][:L]
+            for r in range(n)]
+
+
+def mem_available_gib() -> float:
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) / 2**20
+    raise AssertionError("/proc/meminfo has no MemAvailable")
+
+
+def timed_serve(est: KeyEstimator, rows) -> dict:
+    """est.predict_waveforms(rows) counted (launches, wall), with its peak
+    device memory and its stages (pack + H2D: make_batch; CQT: features;
+    model: the replica's forward), each ending in a synchronize. Keeps
+    the device batch, seq lengths and hop for the checks after."""
+    t, keep = {}, {}
+    make_batch, features = est.make_batch, est.features
+
+    def timed(key, fn):
+        def run(*a):
+            t0 = time.perf_counter()
+            out = fn(*a)
+            torch.cuda.synchronize()
+            t[key] = (time.perf_counter() - t0) * 1e3
+            return out
+        return run
+
+    def batching(*a):
+        out = timed("pack+H2D", make_batch)(*a)
+        keep["batch"], keep["seq"], keep["hop"] = out
+        return out
+
+    def model_pre(m, a):
+        torch.cuda.synchronize()
+        t["model0"] = time.perf_counter()
+
+    def model_post(m, a, out):
+        torch.cuda.synchronize()
+        t["model"] = (time.perf_counter() - t.pop("model0")) * 1e3
+    hooks = [est.model.register_forward_pre_hook(model_pre),
+             est.model.register_forward_hook(model_post)]
+    est.make_batch, est.features = batching, timed("CQT", features)
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        preds, launches, wall = counted(
+            lambda: est.predict_waveforms(rows, SR, return_raw=True))
+    finally:
+        del est.make_batch, est.features
+        for h in hooks:
+            h.remove()
+    return {"preds": preds, "launches": launches, "wall_ms": wall * 1e3,
+            "peak": torch.cuda.max_memory_allocated(), "stages": t, **keep}
+
+
+@ieee_float32()
+def hold_sampled(name: str, est: KeyEstimator, served: dict, idx) -> dict:
+    """The served batch's kernel work on rows idx, against the plain
+    versions: the CQT of the whole batch again (kernels A and B at the
+    batch's B) at those rows against the plain cqt of their signal, at
+    check_cqt's bars; the model again on that CQT, every kernel C stack's
+    input and output at those rows recorded by hooks, the output against
+    fused_convstack_plain of the input (max rel < 5e-2, mean rel < 1e-2),
+    and the keys equal to the served call's."""
+    cfg = est.cfg
+    sd = torch_dtype(cfg.cqt_conv_dtype)
+    batch, seq, hop = served["batch"], served["seq"], served["hop"]
+    rows = torch.tensor(idx, device=batch.device)
+    stacks = []
+    hooks = []
+    for m in est.model.modules():
+        if isinstance(m, ConvStack) and m.fusable:
+            hooks.append(m.register_forward_pre_hook(
+                lambda m, a: stacks.append([m, a[0][rows].clone()])))
+            hooks.append(m.register_forward_hook(
+                lambda m, a, out: stacks[-1].append(out[rows].clone())))
+    try:
+        with torch.inference_mode():
+            mels = est.features(batch, SR, hop)
+            key = est.model(*mels, seq)[0][rows].cpu()
+            p = C.CQTParams(sr=SR, hop=hop, octaves=cfg.octaves)
+            res = {"cqt_d": check_cqt(f"{name}: CQT rows", mels[0][rows, ..., 0],
+                                      C.cqt(batch[rows], p, stream_dtype=sd),
+                                      sd)}
+            del mels
+            res["stack_rel"] = res["stack_mean_rel"] = 0.0
+            for m, x, out in stacks:
+                ref = CS.fused_convstack_plain(x, m.folded_layers()).float()
+                d = (out.float() - ref).abs()
+                rel = float(d.max() / ref.abs().max())
+                mean_rel = float(d.mean() / ref.abs().mean())
+                if not (rel < 5e-2 and mean_rel < 1e-2):
+                    raise AssertionError(f"{name}: stack {tuple(x.shape)} "
+                                         f"max rel {rel:.3g}, mean rel "
+                                         f"{mean_rel:.3g}")
+                res["stack_rel"] = max(res["stack_rel"], rel)
+                res["stack_mean_rel"] = max(res["stack_mean_rel"], mean_rel)
+    finally:
+        for h in hooks:
+            h.remove()
+    served_key = torch.from_numpy(np.stack(
+        [served["preds"][i].key_probs for i in idx]))
+    res["rerun_key_d"] = float((key - served_key).abs().max())
+    res["stacks"] = len(stacks)
+    if len(stacks) != 1 or res["rerun_key_d"] > 1e-6:
+        raise AssertionError(f"{name}: {len(stacks)} stacks, keys again "
+                             f"|d| {res['rerun_key_d']}")
+    return res
+
+
+@ieee_float32()
+@torch.inference_mode()
+def kernel_times(y: torch.Tensor, layers, T_: int) -> dict:
+    """Kernels A (7 octave steps), B and C (fused_convstack) at this
+    batch's B: card ms from a CUDA graph, beside the bound from phase 3's
+    byte and operation counts (cqt_bounds, stack_bytes). C runs on a
+    random (B, 5, 288, T) float32 input with the served stack's
+    weights."""
+    p = C.CQTParams(sr=SR, hop=C.reference_hop(SR, Config().frames))
+    n_fft = C.kernel_bank(p)["n_fft"]
+    head = n_fft // 2
+    B, L = y.shape
+    lay = K.arena_layout(L, p.octaves, n_fft)
+    in_scale = C.input_scale(y)
+    c = K._constants(p, 1 + L // p.hop, in_scale, str(y.device))
+    x0 = C.pad_stream(y, head, lay.lengths[0])
+    sd = torch.bfloat16
+    arena = K.cascade_arena(x0, lay, head, in_scale, sd)
+    streams = K.octave_streams(x0, arena, lay)
+    out = torch.empty(B, p.n_bins, 1 + L // p.hop, device=y.device)
+    reps, repeat = (5, 1) if B > 256 else (10, 2)
+
+    def a_steps():
+        for o in range(1, p.octaves):
+            K.cascade_pad(streams[o - 1], head, lay.lens[o - 1],
+                          lay.lens[o], streams[o],
+                          C.decimation_taps(o, in_scale))
+    res = {"A": graph_ms(a_steps, reps, repeat),
+           "B": graph_ms(lambda: K.octave_response(
+               x0, arena, lay, c.starts, c.bank, c.scales, out), reps,
+               repeat)}
+    ba, bb = cqt_bounds(y, p, lay, sd, c.starts)
+    del x0, arena, streams, out
+    x = torch.randn(B, 5, 288, T_, device=y.device)
+    res["C"] = graph_ms(lambda: CS.fused_convstack(x, layers), reps, repeat)
+    del x
+    bc = bound(stack_bytes(B, 288, T_, 5, len(layers)),
+               sum(2 * B * 288 * T_ * 8 * w.shape[1] * 49 for w, _ in layers),
+               BF16_FLOPS)
+    return {k: {"card_ms": res[k], **b}
+            for k, b in (("A", ba), ("B", bb), ("C", bc))}
+
+
+def serve_batch(name: str, seconds: int, rows, est: KeyEstimator,
+                plain: KeyEstimator) -> dict:
+    """One batch of the n = len(rows) distinct clips of `seconds` through
+    est.predict_waveforms (what predict_files runs after decode): launches
+    as expected_launches says (A 7 / B 1 / C 3 at every B); peak device
+    memory per batch and clip; the host's MemAvailable before; wall, pack
+    + H2D, CQT and model ms; audio-min/s. The first 16 rows and the last
+    16 (the last real row among them): each 16 served again alone (keys
+    within 3e-2; the largest |d| printed), the batch's CQT and kernel C
+    stack at those rows against the plain versions (hold_sampled), their
+    keys against the plain path (agreement). Then each kernel's card ms
+    at this B beside its bound."""
+    t0 = time.perf_counter()
+    n = len(rows)
+    mem = mem_available_gib()
+    s = timed_serve(est, rows)
+    if s["launches"] != expected_launches(est):
+        raise AssertionError(f"{name}: launches {s['launches']}, the gate "
+                             f"says {expected_launches(est)}")
+    key = np.stack([q.key_probs for q in s["preds"]])
+    if key.shape != (n, 12) or not np.isfinite(key).all():
+        raise AssertionError(f"{name}: keys {key.shape}")
+    idx = list(range(16)) + list(range(n - 16, n))
+    alone = []
+    for lo in (0, n - 16):
+        again = est.predict_waveforms(rows[lo:lo + 16], SR, return_raw=True)
+        alone.append(float(np.abs(np.stack([q.key_probs for q in again])
+                                  - key[lo:lo + 16]).max()))
+    if max(alone) >= 3e-2:
+        raise AssertionError(f"{name}: rows served in 16s |d| {alone}")
+    held = hold_sampled(name, est, s, idx)
+    agree = agreement(name, [s["preds"][i] for i in idx],
+                      plain.predict_waveforms([rows[i] for i in idx], SR,
+                                              return_raw=True),
+                      (len(idx), 12))
+    stack = [m for m in est.model.modules()
+             if isinstance(m, ConvStack) and m.fusable][0]
+    with torch.inference_mode():
+        layers = stack.folded_layers()
+    times = kernel_times(s["batch"], layers,
+                         1 + s["batch"].shape[1] // s["hop"])
+    del layers
+    bucket = s["batch"].shape[1] / SR
+    del s["batch"], s["seq"]
+    torch.cuda.empty_cache()
+    res = {"launches": s["launches"], "wall_ms": s["wall_ms"],
+           "stages": s["stages"], "peak_gib": s["peak"] / 2**30,
+           "peak_mib_per_clip": s["peak"] / 2**20 / n,
+           "mem_available_gib": mem, "alone_key_d": max(alone),
+           "audio_min_s": n * seconds / 60 / (s["wall_ms"] / 1e3),
+           "bucket_s": bucket, "held": held, **agree, "kernels": times}
+    log(f"[4b batch] {name}: {n} clips of {seconds} s in the {bucket:.0f} s "
+        f"bucket through predict_waveforms: launches A "
+        f"{s['launches']['cascade_pad']} B {s['launches']['octave_response']}"
+        f" C {s['launches']['conv7_layer']}; wall {s['wall_ms']:.1f} ms = "
+        f"{res['audio_min_s']:.1f} audio-min/s ("
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in s["stages"].items())
+        + f"); peak {res['peak_gib']:.2f} GiB = "
+        f"{res['peak_mib_per_clip']:.1f} MiB a clip (max_memory_allocated),"
+        f" host MemAvailable before {mem:.1f} GiB; rows 0-15 and "
+        f"{n - 16}-{n - 1} served again in 16s: key |d| {max(alone):.3g} "
+        f"(bar 3e-2); at those rows the batch's CQT vs plain max|d| "
+        f"{held['cqt_d']:.3g}, kernel C stack vs plain max rel "
+        f"{held['stack_rel']:.3g} mean rel {held['stack_mean_rel']:.3g}, "
+        f"{agreement_text(agree)}; on the card at this B: "
+        + ", ".join(f"{k} {v['card_ms']:.4f} ms (bound {v['bound_ms']:.4f} "
+                    f"ms, {v['bound_by']}, "
+                    f"{v['bound_ms'] / v['card_ms']:.1%})"
+                    for k, v in times.items())
+        + f"; {time.perf_counter() - t0:.1f} s ({card_line()})")
+    return res
+
+
+def run_batches(device) -> dict:
+    """Phase 4b: the default model (seeded weights, kernels A, B and C)
+    serving each of BATCHES, beside the plain path on sampled rows."""
+    t0 = time.perf_counter()
+    cfg = Config(fused_convstack=True)
+    weights = seeded_weights(cfg)
+    est = KeyEstimator(cfg, weights, device=device)
+    plain = KeyEstimator(cfg.replace(use_pallas_cqt="off",
+                                     fused_convstack=False),
+                         weights, device=device)
+    res, rows = {}, {}
+    for name, seconds, n in BATCHES:
+        if len(rows.get(seconds, ())) < n:
+            rows = {seconds: batch_rows(seconds, max(
+                b for _, s, b in BATCHES if s == seconds))}
+        res[name] = serve_batch(name, seconds, rows[seconds][:n], est, plain)
+    log(f"[4b batch] phase wall {time.perf_counter() - t0:.1f} s")
+    return res
+
+
+@ieee_float32()
 def stage_ms(est: KeyEstimator, paths) -> dict:
     """Split one predict_files call into decode, batch + H2D, CQT and
-    model, each stage ending in torch.cuda.synchronize()."""
+    model, each stage ending in torch.cuda.synchronize(); float32 in IEEE
+    float32, as KeyEstimator.outputs computes it."""
     t = [time.perf_counter()]
     decoded = list(audio_io.decode_many(paths, raw=True))
     t.append(time.perf_counter())
@@ -1190,9 +1769,10 @@ def device_rows(fn) -> dict:
     return {"total_ms": sum(rows.values()), "kernels": n,
             "conv7_ms": conv7_us / 1e3, "conv7_launches": conv7,
             "top": sorted(rows.items(), key=lambda kv: -kv[1])[:5],
-            "tf32": torch.backends.cudnn.allow_tf32}
+            "conv_fp32": precision.flags()["cudnn.conv"]}
 
 
+@ieee_float32()
 def model_split(est: KeyEstimator, paths, with_conv7: bool = True,
                 local: bool = False) -> dict:
     """The model stage of one served batch on the card (global or local
@@ -1200,7 +1780,8 @@ def model_split(est: KeyEstimator, paths, with_conv7: bool = True,
     kernel C's rows (which must be there when with_conv7, and absent
     otherwise) against the rest and the largest rows by name
     (device_rows); for the multi-scale ensemble also each tower alone on
-    its own CQT (`towers`: model1 at 36, model2 at 12 bins/octave)."""
+    its own CQT (`towers`: model1 at 36, model2 at 12 bins/octave).
+    float32 in IEEE float32, as KeyEstimator.outputs computes it."""
     decoded = list(audio_io.decode_many(paths, raw=True))
     sr = decoded[0][1]
     batch, seq, hop = est.make_batch([w for w, _ in decoded], sr)
@@ -1646,7 +2227,7 @@ def eval_outputs(state, cfg: Config, ds) -> tuple:
     """Per-sample (key, tonic) of the eval-mode model over
     ds.batches(cfg.batch_size), the repeat-padded rows dropped, with the
     labels; rows follow ds.items. Counted: the launches of these
-    forwards."""
+    forwards. float32 in IEEE float32, as eval_step computes it."""
     device = next(state.model.parameters()).device
 
     def run():
@@ -1656,7 +2237,7 @@ def eval_outputs(state, cfg: Config, ds) -> tuple:
         for b in ds.batches(cfg.batch_size):
             valid = torch.from_numpy(b.pop("valid"))
             tb = T.to_device(b, device)
-            with torch.inference_mode():
+            with torch.inference_mode(), ieee_float32():
                 key, tonic = T.forward(state.model, cfg, tb)[:2]
             for k, v in (("key", key), ("tonic", tonic)) + tuple(
                     (n, tb[n]) for n in ("key_labels", "tonic_labels",
@@ -1903,7 +2484,8 @@ def run_train(roots: dict, td: str, device, cfg: Config,
              for k, v in first.items()}
     cpu = step_against_cpu(cfg, first, device)
     log(f"[6 train] {tag}one step, card vs CPU (same weights and batch, "
-        f"drop 0, TF32 {torch.backends.cudnn.allow_tf32}): loss "
+        f"drop 0, train_step in IEEE float32 under the caller's "
+        f"{precision.flags()}): loss "
         f"{cpu['loss']:.6f} "
         f"vs {cpu['cpu_loss']:.6f} (rel {cpu['loss_rel']:.3g}, bar 1e-4); "
         f"gradients at {cpu['grad']['ratio']:.3g} of their bar (1e-3 of the "
@@ -1945,8 +2527,8 @@ def run_train(roots: dict, td: str, device, cfg: Config,
         f"{max(walls) * 1e3:.1f}) = {cfg.batch_size * cfg.acc_grad / med:.1f}"
         f" songs/s; peak memory {peak / 2**20:.1f} MiB "
         f"(max_memory_allocated); ({card_line()})")
-    log(f"[6 train] {tag}one step on the card (torch.profiler, TF32 "
-        f"{torch.backends.cudnn.allow_tf32}): {split['total_ms']:.3f} ms "
+    log(f"[6 train] {tag}one step on the card (torch.profiler, "
+        f"train_step in IEEE float32): {split['total_ms']:.3f} ms "
         f"device; " + ", ".join(f"{k} {v_:.3f} ms"
                                 for k, v_ in split["split"].items())
         + "; largest kernels: " + "; ".join(
@@ -1980,11 +2562,113 @@ def run_train(roots: dict, td: str, device, cfg: Config,
         f"eval outputs of that state {serve_d:.3g} (bar 1e-3); e.g. "
         f"{preds[0].key!r}; wall {serve_wall * 1e3:.1f} ms")
     return {"import_launches": import_launches, "sets": (train, val),
+            "first": first,
             "fit_launches": fit_launches,
             "val_launches": {k: v["launches"][k] + v2["launches"][k]
                              for k in v["launches"]},
             "serve_launches": serve_launches,
             "step_ms": med * 1e3, "peak_mib": peak / 2**20}
+
+
+def mask_sums(keep: torch.Tensor) -> tuple:
+    """A dropout mask's fingerprint: its shape, its count of kept
+    elements and a position-weighted sum (exact in float64)."""
+    w = torch.arange(keep.numel(), device=keep.device,
+                     dtype=torch.float64) % 1009
+    return (tuple(keep.shape), int(keep.sum()),
+            float((keep.flatten().double() * w).sum()))
+
+
+def remat_step(cfg: Config, batch: dict, device) -> dict:
+    """One train step of cfg from create_train_state(cfg, 0) after a
+    warm-up step on another state: loss, gradients, BatchNorm buffers,
+    wall, peak device memory, and the fingerprint of every dropout mask
+    drawn (blocks.dropout wrapped: each mask drawn again from a copy of
+    the generator's state)."""
+    step = T.make_train_step(cfg, 1, seed=0)
+    step(T.create_train_state(cfg, 0, device), batch)
+    st = T.create_train_state(cfg, 0, device)
+    masks = []
+    dropout = blocks.dropout
+
+    def recording(x, rate, generator, shard=None):
+        g = torch.Generator(device=x.device)
+        g.set_state(generator.get_state())
+        masks.append(mask_sums(torch.empty_like(x).bernoulli_(
+            1.0 - rate, generator=g)))
+        return dropout(x, rate, generator, shard)
+    blocks.dropout = recording
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        loss = float(step(st, batch)["loss"])
+        wall = time.perf_counter() - t0
+    finally:
+        blocks.dropout = dropout
+    return {"loss": loss, "ms": wall * 1e3,
+            "peak_mib": torch.cuda.max_memory_allocated() / 2**20,
+            "masks": masks,
+            "grads": {k: p.grad.detach().cpu() for k, p in
+                      st.model.named_parameters()},
+            "bufs": {k: b.detach().cpu() for k, b in
+                     st.model.named_buffers() if "running" in k}}
+
+
+def check_remat(name: str, cfg: Config, batch: dict, device) -> dict:
+    """One train step of cfg with remat off and on, from the same seeds,
+    the dropout generator on the card: remat against no remat, loss rel
+    <= 1e-6, gradients within phase 6's bar, every BatchNorm running
+    statistic rel <= 1e-6 (updated once: the recomputation leaves them
+    alone); with dropout, each mask of the forward drawn again in the
+    recomputation and the masks those of the step without remat."""
+    off = remat_step(cfg.replace(remat=False), batch, device)
+    on = remat_step(cfg.replace(remat=True), batch, device)
+    res = {"loss_rel": abs(on["loss"] - off["loss"]) / abs(off["loss"]),
+           "grad": scale_ratio(on["grads"], off["grads"], 1e-3, 1e-3),
+           "bn_rel": max(float(((on["bufs"][k] - v).abs()
+                                / v.abs().clamp_min(1e-30)).max())
+                         for k, v in off["bufs"].items()),
+           "masks": len(off["masks"]), "off": off, "on": on}
+    # with remat each mask is drawn in the forward and again in the
+    # recomputation: every fingerprint twice, and the set of them the
+    # step's without remat
+    twice = sorted(on["masks"]) == sorted(off["masks"] * 2)
+    if cfg.drop > 0 and (not off["masks"] or not twice):
+        raise AssertionError(f"{name}: dropout masks without remat "
+                             f"{len(off['masks'])}, with remat "
+                             f"{len(on['masks'])}, drawn again alike "
+                             f"{twice}")
+    if not (np.isfinite(on["loss"]) and res["loss_rel"] <= 1e-6
+            and res["grad"]["ratio"] <= 1 and res["bn_rel"] <= 1e-6):
+        raise AssertionError(f"{name}: remat vs no remat "
+                             f"{ {k: res[k] for k in ('loss_rel', 'grad', 'bn_rel')} }")
+    log(f"[6 train] remat {name}: one step of {batch['mel'].shape[0]} x "
+        f"{batch['mel'].shape[1]} songs with remat vs without (same seeds, "
+        f"dropout generator on {device}): loss {on['loss']:.6f} vs "
+        f"{off['loss']:.6f} (rel {res['loss_rel']:.3g}, bar 1e-6); gradients "
+        f"at {res['grad']['ratio']:.3g} of phase 6's bar (worst "
+        f"{res['grad']['name']} |d| {res['grad']['d']:.3g}); BatchNorm "
+        f"running statistics rel {res['bn_rel']:.3g} (bar 1e-6); "
+        + (f"{len(off['masks'])} dropout masks, each drawn again alike in "
+           f"the recomputation ({len(on['masks'])} with remat); "
+           if cfg.drop > 0 else "no dropout; ")
+        + f"step wall {on['ms']:.1f} ms with remat, {off['ms']:.1f} ms "
+        f"without; peak memory {on['peak_mib']:.1f} MiB with remat, "
+        f"{off['peak_mib']:.1f} MiB without ({card_line()})")
+    return res
+
+
+def run_remat(first: dict, device) -> dict:
+    """Phase 6's remat lines: the denseblock variant with dropout 0.2 (the
+    only variant with dropout) and the default model, on the first
+    training batch of phase 6's corpus."""
+    tb = T.to_device(first, device)
+    return {name: check_remat(name, Config(fused_convstack=True, **kw), tb,
+                              device)
+            for name, kw in (("denseblock drop 0.2",
+                              dict(denseblock=True, drop=0.2)),
+                             ("default", {}))}
 
 
 # ---------------------------------------------------------------------------
@@ -2161,8 +2845,6 @@ def dp_rank(rank: int, world: int, store: str, out: str, cfg: Config,
     `val` through kernel C on the step's starting weights. Writes its
     results to out/rank<rank>.pt, or its traceback to .err."""
     try:
-        torch.backends.cuda.matmul.allow_tf32 = False
-        torch.backends.cudnn.allow_tf32 = False
         device = init_data_parallel("cuda", backend="gloo",
                                     init_method=f"file://{store}", rank=rank,
                                     world_size=world, local_rank=0,
@@ -2596,9 +3278,10 @@ def main() -> int:
         raise SystemExit("chip_smoke: no CUDA device "
                          "(torch.cuda.is_available() is False)")
     device = torch.device("cuda")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
+    flag_log = logging.getLogger(precision.__name__)
+    flag_log.setLevel(logging.INFO)
+    flag_log.addHandler(FlagLog())
     log(f"[1 device] torch {torch.__version__} (CUDA {torch.version.cuda}) "
         f"on {torch.cuda.get_device_name(0)}; nvidia-smi: {card}")
 
@@ -2639,6 +3322,7 @@ def main() -> int:
         local_ms = serve_local(paths, device, "multi_scale",
                                multi_scale=True)
         mixed = serve_mixed(waves, td, device)
+    batches = run_batches(device)
     with tempfile.TemporaryDirectory() as td:
         data = run_dataset(td, device)
     with tempfile.TemporaryDirectory() as td:
@@ -2650,6 +3334,8 @@ def main() -> int:
             f"Hz (scale walks)")
         trained = run_train(roots, os.path.join(td, "default"), device,
                             Config(fused_convstack=True, epochs=3))
+        run_remat(trained["first"], device)
+        run_precision(waves, trained["first"], trained["sets"][1], device)
         trained_ms = run_train(roots, os.path.join(td, "multi_scale"),
                                device, Config(fused_convstack=True, epochs=3,
                                               multi_scale=True),
@@ -2697,6 +3383,9 @@ def main() -> int:
         by_path[k] |= {"dp world-1 fit": dp["fit1"]["launches"][k],
                        "dp world-2 evaluate, each rank":
                            dp["world2"]["eval_launches"][k]}
+        # phase 4b: one served batch of each size and bucket
+        by_path[k] |= {f"batch {name}": r["launches"][k]
+                       for name, r in batches.items()}
     # the largest |d| of the served batches' own CQT and kernel C stacks
     # against their plain versions, over every served path, shards too
     held = [r["held"] for r in served_by.values()] + [
@@ -2713,6 +3402,10 @@ def main() -> int:
                 "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
                 "library_ms": library_ms, **extra}
 
+    def by_batch(kernel):
+        # phase 4b: card ms and bound at each served batch's B and bucket
+        return {name: r["kernels"][kernel] for name, r in batches.items()}
+
     def res_bound(key):
         return {"bound_ms": res[key + "_bound_ms"],
                 "bound_by": res[key + "_bound_by"]}
@@ -2724,21 +3417,24 @@ def main() -> int:
             tpu + "cqt_pallas.py:472", n["cascade_pad"], res["A"],
             res["A_ms"], res["A_plain_ms"], res_bound("A"),
             res["A_library_ms"], card_ms=res["A_card_ms"],
-            library="F.conv1d stride 2 x 7, zero-padded interiors",
+            library="F.conv1d stride 2 x 7, zero-padded interiors, IEEE "
+                    "float32 (TF32 off, scoped to phase 3)",
             launches_by_path=by_path["cascade_pad"],
             served_cqt_max_abs_err=served_cqt_d,
-            dataset_max_abs_err=data["mel_d"]),
+            dataset_max_abs_err=data["mel_d"],
+            by_batch=by_batch("A")),
         row("cqt_response (kernel B, 8 octaves in one launch)",
             "cqt_response.cu",
             tpu + "cqt_pallas.py:163, " + tpu + "cqt_pallas.py:316",
             n["octave_response"], res["B"], res["B_ms"], res["B_plain_ms"],
             res_bound("B"), None, gemm_only_ms=res["B_gemm_only_ms"],
             card_ms=res["B_card_ms"],
-            library="none (GEMM only: torch.matmul f32, TF32 off, "
-                    "pre-gathered frames)",
+            library="none (GEMM only: torch.matmul f32, IEEE float32 "
+                    "(TF32 off, scoped to phase 3), pre-gathered frames)",
             launches_by_path=by_path["octave_response"],
             served_cqt_max_abs_err=served_cqt_d,
-            dataset_max_abs_err=data["mel_d"]),
+            dataset_max_abs_err=data["mel_d"],
+            by_batch=by_batch("B")),
         row("conv7 (kernel C, 3 layers: fused_convstack, f32 NCHW in and "
             "out)", "conv7.cu",
             tpu + "convstack_pallas.py:91", n["conv7_layer"], res["C"],
@@ -2759,7 +3455,7 @@ def main() -> int:
             model_stage_ms=srv["default"]["split"]["total_ms"],
             model_stage_conv7_ms=srv["default"]["split"]["conv7_ms"],
             launches_by_path=by_path["conv7_layer"],
-            served_max_abs_err=served_c_d),
+            served_max_abs_err=served_c_d, by_batch=by_batch("C")),
         row("window_copy (#5, six variants; ms summed)",
             "probe_window_copy.cu", "scripts/probe_dma_rate.py:57",
             m["window_copy"], 0.0, probe["window"]["ms"],
