@@ -54,7 +54,8 @@ int akt_window_copy(const void* x, long long stride, int Lpad, int batch,
                     int chunk, int variant, int static_stride, float* out,
                     void* stream);
 int akt_transpose_pad(const void* y, int dtype, long long stride, int B,
-                      int L, int half, int lfull, void* out, void* stream);
+                      int L, int half, int lfull, int run_rows, int chunk,
+                      int grid, void* out, void* stream);
 int akt_launch_probe(const void* in, float* out, int grid_n, int repeats,
                      void* stream);
 int akt_probe_primitive(int which, const void* in, float* out, void* stream);
@@ -195,13 +196,14 @@ at::Tensor window_copy(const at::Tensor& x, const at::Tensor& starts,
   return out;
 }
 
-at::Tensor transpose_pad(const at::Tensor& y, int64_t half, int64_t lfull) {
+at::Tensor transpose_pad(const at::Tensor& y, int64_t half, int64_t lfull,
+                         int64_t run_rows, int64_t chunk, int64_t grid) {
   same_device(y, {}, "akt::transpose_pad");
   const c10::cuda::CUDAGuard guard(y.device());
   at::Tensor out = at::empty({lfull, y.size(0)}, y.options());
   check_rc(akt_transpose_pad(y.data_ptr(), dtype_code(y.scalar_type()),
                              y.stride(0), y.size(0), y.size(1), half, lfull,
-                             out.data_ptr(), stream()),
+                             run_rows, chunk, grid, out.data_ptr(), stream()),
            "transpose_pad");
   return out;
 }
@@ -243,7 +245,8 @@ TORCH_LIBRARY(akt, m) {
         "ScalarType? nchw_out) -> Tensor");
   m.def("window_copy(Tensor x, Tensor starts, int tile_t, int win, "
         "int chunk, int variant, int static_stride) -> Tensor");
-  m.def("transpose_pad(Tensor y, int half, int lfull) -> Tensor");
+  m.def("transpose_pad(Tensor y, int half, int lfull, int run_rows, "
+        "int chunk, int grid) -> Tensor");
   m.def("launch_probe(Tensor x, int grid_n, int repeats) -> Tensor");
   m.def("probe_primitive(Tensor x, int which, int[] out_shape) -> Tensor");
 }

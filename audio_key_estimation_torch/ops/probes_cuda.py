@@ -16,9 +16,15 @@ CUDA tensor (or raises) and runs the plain PyTorch version only for a CPU
 tensor; `launches` counts kernel launches. `response_plan` and `tp_plan`
 are copies of the JAX package's geometry rules (those modules import
 JAX), pinned to the originals by tests/test_torch_probes.py.
+`window_plan` and `transpose_plan` size the two copy kernels' grids
+(clip chunks, runs, shared memory); tests/test_torch_copy_plans.py holds
+them to their rules on the CPU.
 """
 
 from __future__ import annotations
+
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -39,6 +45,10 @@ PRIMITIVES = {            # name: (input shape, input dtype, output shape)
     "p5_window": ((9, 256), torch.float32, (8, 304)),
 }
 _SMEM_BUDGET = 64 << 10   # staged window bytes per window_copy block
+SMEM_PER_SM = 228 << 10   # an H100 SM's shared memory (L1 carve-out)
+SMEM_PER_BLOCK = 227 << 10  # the most one block may ask for
+BLOCKS_PER_SM = 2         # window_copy: resident blocks to fill an SM
+DB_STEPS = 4              # steps one dma3_db block walks (kDbSteps)
 
 # audio_key_estimation_tpu/ops/cqt_pallas.py response-kernel budgets
 _TILE_T = 8
@@ -99,6 +109,42 @@ def window_offsets(starts: torch.Tensor, variant: str, tile_t: int,
     return first // ALIGN * ALIGN
 
 
+class WindowPlan(NamedTuple):
+    """window_copy's grid: (x_blocks, n_chunks) blocks of up to `chunk`
+    clips, `smem` bytes of staged windows each."""
+    chunk: int
+    n_chunks: int
+    x_blocks: int
+    smem: int
+
+
+@functools.lru_cache(maxsize=256)
+def window_plan(variant: str, batch: int, grid_n: int, tile_t: int,
+                win: int, n_sm: int) -> WindowPlan:
+    """The fewest clip chunks (each within _SMEM_BUDGET) whose grid
+    holds BLOCKS_PER_SM blocks on each of n_sm SMs, or one clip a chunk
+    where none does. The kernel splits the clips evenly: chunk y holds
+    clips [y B / n_chunks, (y + 1) B / n_chunks), at most `chunk`. `grid`
+    takes dma3's chunks (the same grid, with no copies)."""
+    copies = "dma3" if variant == "grid" else variant
+    db = copies == "dma3_db"
+    slots = 2 if db else 1
+    n_win = 1 if copies in ("dma1", "dma3_big") else tile_t
+    span = tile_t * win if copies == "dma3_big" else win
+    per_clip = slots * n_win * span * 2
+    x_blocks = -(-grid_n // DB_STEPS) if db else grid_n
+    max_chunk = max(1, min(batch, _SMEM_BUDGET // per_clip))
+    n = -(-batch // max_chunk)
+    while True:
+        chunk = -(-batch // n)
+        n_chunks = -(-batch // chunk)
+        if chunk == 1 or x_blocks * n_chunks >= BLOCKS_PER_SM * n_sm:
+            break
+        n += 1
+    smem = 0 if variant == "grid" else chunk * per_clip
+    return WindowPlan(chunk, n_chunks, x_blocks, smem)
+
+
 def window_copy_plain(x: torch.Tensor, starts: torch.Tensor, variant: str,
                       tile_t: int, win: int,
                       static_stride: int = STATIC_STRIDE) -> torch.Tensor:
@@ -127,7 +173,8 @@ def window_copy(x: torch.Tensor, starts: torch.Tensor, variant: str,
                 tile_t: int, win: int,
                 static_stride: int = STATIC_STRIDE) -> torch.Tensor:
     """Stage the frame windows of an int16 (B, Lpad) stream as `variant`
-    copies them (probe_window_copy.cu; its plain version on CPU).
+    copies them (probe_window_copy.cu; its plain version on CPU). A call
+    captured into a CUDA graph launches nothing and is not counted.
 
     starts (t_pad,) int32, t_pad a multiple of tile_t; every window
     [start // 16 * 16, + win) must lie inside the stream's rows. dma3_static
@@ -153,12 +200,13 @@ def window_copy(x: torch.Tensor, starts: torch.Tensor, variant: str,
         _require(static_stride >= 0 and (t_pad - 1) * static_stride
                  // ALIGN * ALIGN + win <= Lpad,
                  "window_copy: dma3_static windows run past the stream")
-    slots = 2 if variant == "dma3_db" else 1
-    chunk = max(1, min(B, _SMEM_BUDGET // (slots * tile_t * win * 2)))
-    out = _build.op("window_copy")(x, starts, tile_t, win, chunk,
+    plan = window_plan(variant, B, t_pad // tile_t, tile_t, win,
+                       sm_count(x.device))
+    out = _build.op("window_copy")(x, starts, tile_t, win, plan.chunk,
                                    WINDOW_VARIANTS.index(variant),
                                    static_stride)
-    window_copy.launches += 1
+    if not torch.cuda.is_current_stream_capturing():
+        window_copy.launches += 1
     return out
 
 
@@ -182,6 +230,63 @@ def transpose_pad_geometry(y: torch.Tensor, last_start: int, n_fft: int):
     return lfull
 
 
+TP_THREADS = 256          # transpose_pad.cu kThreads
+TP_MAX_CHUNK = 32         # clips one work item stages (kMaxChunk)
+TP_SLOT_PAD = 128         # a clip slot's bytes beyond its run (kSlotPad)
+TP_STAGE_BYTES = 32 << 10  # staged run bytes per stage, all clips
+TP_MAX_BLOCKS_PER_SM = 4
+
+
+class TransposePlan(NamedTuple):
+    """transpose_pad's work: n_runs runs of run_rows output rows times
+    n_chunks chunks of up to `chunk` clips, walked by a persistent grid
+    of `grid` blocks with two stages of `chunk` slots of `row_bytes`."""
+    chunk: int
+    n_chunks: int
+    run_rows: int
+    n_runs: int
+    row_bytes: int
+    smem: int
+    grid: int
+
+
+@functools.lru_cache(maxsize=256)
+def transpose_plan(B: int, lfull: int, itemsize: int,
+                   n_sm: int) -> TransposePlan:
+    """Chunks of min(B, 32) clips; runs of TP_STAGE_BYTES / chunk bytes
+    a clip (chunk rounded up to a power of two; 2 to 16 KB, a multiple of
+    128); as many blocks per SM as two stages leave room for (1 KB a
+    block reserved), at most TP_MAX_BLOCKS_PER_SM, and no more blocks
+    than work items. Chosen by `scripts/time_copy_kernels.py --sweep` on
+    the H100 (int16, 120 s): 2 KB a clip was fastest at B = 16 (3 blocks
+    an SM) and at B = 256 (chunks of 32, 1 block an SM), 1 KB and 0.5 KB
+    slower at every block count."""
+    chunk = min(B, TP_MAX_CHUNK)
+    n_chunks = -(-B // chunk)
+    cp = 1 << (chunk - 1).bit_length()
+    run_bytes = max(2 << 10, min(16 << 10, TP_STAGE_BYTES // cp))
+    run_rows = run_bytes // itemsize
+    n_runs = -(-lfull // run_rows)
+    row_bytes = run_bytes + TP_SLOT_PAD
+    smem = 2 * chunk * row_bytes
+    per_sm = max(1, min(TP_MAX_BLOCKS_PER_SM,
+                        SMEM_PER_SM // (smem + (1 << 10))))
+    grid = min(n_runs * n_chunks, n_sm * per_sm)
+    return TransposePlan(chunk, n_chunks, run_rows, n_runs, row_bytes, smem,
+                         grid)
+
+
+def sm_count(device: torch.device) -> int:
+    """The SMs of a CUDA device."""
+    return _sm_count(device.index if device.index is not None
+                     else torch.cuda.current_device())
+
+
+@functools.cache
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
 def transpose_pad_plain(y: torch.Tensor, half: int,
                         lfull: int) -> torch.Tensor:
     """(B, L) -> (lfull, B): y reflect-padded by (half, half + 1), zeros
@@ -201,7 +306,8 @@ def transpose_pad_tm(y: torch.Tensor, last_start: int,
 
 
 def transpose_pad(y: torch.Tensor, half: int, lfull: int) -> torch.Tensor:
-    """transpose_pad.cu on CUDA, its plain version on CPU."""
+    """transpose_pad.cu on CUDA, its plain version on CPU. A call
+    captured into a CUDA graph launches nothing and is not counted."""
     if y.is_cpu:
         return transpose_pad_plain(y, half, lfull)
     _require(y.is_cuda and y.dtype in (torch.int16, torch.float32)
@@ -209,8 +315,12 @@ def transpose_pad(y: torch.Tensor, half: int, lfull: int) -> torch.Tensor:
              "transpose_pad: y must be a CUDA int16/float32 (B, L) tensor "
              "with contiguous rows")
     _require(y.shape[1] >= half + 2, "transpose_pad: L < half + 2")
-    out = _build.op("transpose_pad")(y, half, lfull)
-    transpose_pad.launches += 1
+    plan = transpose_plan(y.shape[0], lfull, y.element_size(),
+                          sm_count(y.device))
+    out = _build.op("transpose_pad")(y, half, lfull, plan.run_rows,
+                                     plan.chunk, plan.grid)
+    if not torch.cuda.is_current_stream_capturing():
+        transpose_pad.launches += 1
     return out
 
 

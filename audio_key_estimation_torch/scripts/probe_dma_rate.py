@@ -15,8 +15,11 @@ copy pattern of csrc/probe_window_copy.cu:
   dma3_big    one contiguous span of tile_t * win per step
   dma3_db     tile_t windows per step, double-buffered across steps
 
-and prints each variant's time and the rate of the bytes it stages.
-Times are CUDA events: a warm-up, then the median of AKX_REPS runs.
+and prints each variant's time and the rate of the bytes it stages:
+eager (CUDA events around one call, host included: a warm-up, then the
+median of AKX_REPS runs) and on the card (the call replayed from a CUDA
+graph, `harness.graph_ms`). Each window is one bulk copy into shared
+memory completing on an mbarrier (csrc/probe_window_copy.cu).
 
 Run on the card:  AKX_B=512 python -m audio_key_estimation_torch.scripts.probe_dma_rate
 """
@@ -30,8 +33,9 @@ import torch
 from audio_key_estimation_torch.ops import probes_cuda as PC
 from audio_key_estimation_torch.ops.cqt import (CQTParams, _frame_starts,
                                                 kernel_bank, pad_stream)
-from audio_key_estimation_torch.scripts.harness import (card_line, log,
-                                                        require_cuda, time_ms)
+from audio_key_estimation_torch.scripts.harness import (card_line, graph_ms,
+                                                        log, require_cuda,
+                                                        time_ms)
 
 SR = 44100
 CLIP_SECONDS = int(os.environ.get("AKX_CLIP", 120))
@@ -66,7 +70,7 @@ def make_stream(batch: int, L: int, n_fft: int, length: int,
 
 def main(sr: int = SR, clip: int = CLIP_SECONDS, batch: int = B,
          reps: int = REPS) -> dict:
-    """{variant: (ms, GB/s)}."""
+    """{variant: (eager ms, GB/s, card ms, card GB/s)}."""
     device = require_cuda("probe_dma_rate")
     n_fft, hop, L, tile_t, starts, length = geometry(sr, clip, batch)
     win = n_fft + PC.ALIGN
@@ -81,12 +85,15 @@ def main(sr: int = SR, clip: int = CLIP_SECONDS, batch: int = B,
     log(f"dma3_static frame spacing {stride}")
     res = {}
     for variant in PC.WINDOW_VARIANTS:
-        ms = time_ms(lambda: PC.window_copy(x, starts_dev, variant, tile_t,
-                                            win, stride), reps)
+        def call():
+            return PC.window_copy(x, starts_dev, variant, tile_t, win,
+                                  stride)
+        ms, card = time_ms(call, reps), graph_ms(call, reps)
         moved = PC.window_copy_bytes(variant, t_pad, tile_t, win, batch)
-        rate = moved / (ms * 1e-3) / 1e9
-        res[variant] = (ms, rate)
-        log(f"  {variant:12s}: {ms:9.4f} ms  {rate:8.1f} GB/s")
+        rate, card_rate = (moved / (t * 1e-3) / 1e9 for t in (ms, card))
+        res[variant] = (ms, rate, card, card_rate)
+        log(f"  {variant:12s}: {ms:9.4f} ms  {rate:8.1f} GB/s eager; "
+            f"{card:9.5f} ms  {card_rate:8.1f} GB/s on the card")
     return res
 
 

@@ -127,7 +127,11 @@ non-zero):
              kernel B's stage split) against their plain versions at a
              small geometry and at the serving geometry, exact for the
              copies, each also replayed from a CUDA graph (the card's
-             time; #8 beside torch.ones'); then each probe
+             time; #8 beside torch.ones'); #5's six variants also at
+             B = 13, each variant's card ms and GB/s; #7 also at
+             B = 256 x 120 s, B = 40 and on a view y[:, 1:], timed at
+             B = 16 and 256 beside y.t().contiguous() (transpose only,
+             no pad: not the same function); then each probe
              entry point
              (audio_key_estimation_torch/scripts/) driven once at the
              serving geometry, every probe kernel's launch count checked;
@@ -1781,22 +1785,32 @@ def model_split(est: KeyEstimator, paths, with_conv7: bool = True,
     otherwise) against the rest and the largest rows by name
     (device_rows); for the multi-scale ensemble also each tower alone on
     its own CQT (`towers`: model1 at 36, model2 at 12 bins/octave).
-    float32 in IEEE float32, as KeyEstimator.outputs computes it."""
+    float32 in IEEE float32, as KeyEstimator.outputs computes it.
+    A trace can come back cut short (seen once on the H100: 32 device
+    rows of a ~130-kernel model, no kernel C); such a pass is logged and
+    profiled again, and three passes without kernel C's rows fail."""
     decoded = list(audio_io.decode_many(paths, raw=True))
     sr = decoded[0][1]
     batch, seq, hop = est.make_batch([w for w, _ in decoded], sr)
     net = est.local_model if local else est.model
     with torch.inference_mode():
         mels = est.features(batch, sr, hop)
-        res = device_rows(lambda: net(*mels, seq))
+        for _ in range(3):
+            res = device_rows(lambda: net(*mels, seq))
+            if res["kernels"] and bool(res["conv7_launches"]) == with_conv7:
+                break
+            log(f"[4 serve] torch.profiler saw {res['kernels']} device "
+                f"rows, {res['conv7_launches']} of kernel C (expected "
+                f"{'some' if with_conv7 else 'none'}): profiling again")
+        else:
+            raise AssertionError(f"profiler saw {res['kernels']} device "
+                                 f"rows, {res['conv7_launches']} of kernel C "
+                                 "in three passes")
         if est.cfg.multi_scale:
             res["towers"] = {
                 name: device_rows(lambda t=tower, m=mel: t(m, seq))
                 for name, tower, mel in (("model1", net.model1, mels[0]),
                                          ("model2", net.model2, mels[1]))}
-    if not res["kernels"] or bool(res["conv7_launches"]) != with_conv7:
-        raise AssertionError(f"profiler saw {res['kernels']} device rows, "
-                             f"{res['conv7_launches']} of kernel C")
     return res
 
 
@@ -3064,11 +3078,14 @@ def check_exact(name, got, ref) -> float:
 
 
 def check_window_copy(device) -> dict:
-    """#5, six variants: 44.1 kHz 3 s B = 4 (the CPU test's geometry) and
-    the serving geometry (22050 Hz, 120 s, B = 16); times at the latter."""
-    res = {"ms": 0.0, "card_ms": 0.0, "plain_ms": 0.0, "rates": {},
-           "bound_ms": 0.0}
-    for sr, clip, batch in ((44100, 3, 4), (SR, CLIP_SECONDS, BATCH)):
+    """#5, six variants: 44.1 kHz 3 s B = 4 (the CPU test's geometry),
+    the serving geometry (22050 Hz, 120 s, B = 16) and B = 13 at the
+    serving rate (a batch no chunking divides); times at B = 16, each
+    variant's card ms and the rate of the bytes it stages."""
+    res = {"ms": 0.0, "card_ms": 0.0, "card_ms_100": 0.0, "plain_ms": 0.0,
+           "rates": {}, "bound_ms": 0.0, "variants": {}}
+    for sr, clip, batch in ((44100, 3, 4), (SR, CLIP_SECONDS, BATCH),
+                            (SR, CLIP_SECONDS, 13)):
         n_fft, hop, L, tile_t, starts, length = probe_dma_rate.geometry(
             sr, clip, batch)
         win = n_fft + PC.ALIGN
@@ -3079,22 +3096,37 @@ def check_window_copy(device) -> dict:
             args = (x, st, v, tile_t, win, stride)
             check_exact(f"window_copy {v} sr={sr} B={batch}",
                         PC.window_copy(*args), PC.window_copy_plain(*args))
-            if sr == SR:
-                ms = time_ms(lambda: PC.window_copy(*args))
-                res["ms"] += ms
-                res["card_ms"] += graph_ms(lambda: PC.window_copy(*args))
-                res["plain_ms"] += time_ms(lambda: PC.window_copy_plain(*args))
-                nbytes = PC.window_copy_bytes(v, len(starts), tile_t, win,
-                                              batch)
-                res["rates"][v] = nbytes / (ms * 1e-3) / 1e9
-                # the windows the variant stages, and its output
-                res["bound_ms"] += bound(nbytes + len(starts) * 4)[
-                    "bound_ms"]
-    log("[7 probes] #5 window_copy: 6 variants x 2 geometries exact; at "
-        "serving geometry " + ", ".join(
-            f"{v} {r:.0f} GB/s" for v, r in res["rates"].items())
+            if (sr, batch) != (SR, BATCH):
+                continue
+            ms = time_ms(lambda: PC.window_copy(*args))
+            card = graph_ms(lambda: PC.window_copy(*args))
+            # 100 calls in one graph (as #8's floor): the graph's own
+            # launch, ~1.5 us a call at 5, spread thinner
+            card100 = graph_ms(lambda: PC.window_copy(*args), repeat=100)
+            res["ms"] += ms
+            res["card_ms"] += card
+            res["card_ms_100"] += card100
+            res["plain_ms"] += time_ms(lambda: PC.window_copy_plain(*args))
+            nbytes = PC.window_copy_bytes(v, len(starts), tile_t, win, batch)
+            res["rates"][v] = nbytes / (ms * 1e-3) / 1e9
+            # the windows the variant stages, and its output
+            b = bound(nbytes + len(starts) * 4)["bound_ms"]
+            res["bound_ms"] += b
+            res["variants"][v] = {
+                "card_ms": card, "card_ms_100": card100, "bound_ms": b,
+                "bytes": nbytes, "card_GBps": nbytes / (card * 1e-3) / 1e9,
+                "card_100_GBps": nbytes / (card100 * 1e-3) / 1e9}
+    log("[7 probes] #5 window_copy: 6 variants x 3 geometries (B = 4, 16, "
+        "13) exact; at B = 16 per variant: " + ", ".join(
+            f"{v} {r['card_ms'] * 1e3:.2f} us card ({r['card_GBps']:.0f} "
+            f"GB/s), {r['card_ms_100'] * 1e3:.2f} us at 100 a graph "
+            f"({r['card_100_GBps']:.0f} GB/s), eager {res['rates'][v]:.0f} "
+            "GB/s" for v, r in res["variants"].items())
         + f"; six variants {res['ms']:.4f} ms eager, {res['card_ms']:.4f} "
-        "ms on the card (CUDA graph)")
+        f"ms on the card (CUDA graph, 5 a graph; "
+        f"{res['card_ms_100']:.4f} at 100 a graph), bound "
+        f"{res['bound_ms']:.5f} ms ({res['bound_ms'] / res['card_ms']:.1%}; "
+        f"{res['bound_ms'] / res['card_ms_100']:.1%})")
     return res
 
 
@@ -3170,26 +3202,55 @@ def check_stages(y: torch.Tensor, p: C.CQTParams, device) -> dict:
 
 
 def check_transpose_pad(y: torch.Tensor) -> dict:
-    """#7, int16 and float32: the serving clips and an (8, 9001) batch
-    exact against the plain version; a refused geometry gives None."""
-    res = {}
+    """#7, int16 and float32, exact against the plain version: an (8, 9001)
+    batch, the serving clips, B = 256 x 120 s (the entry point's
+    default), B = 40 (over 32 clips, not a multiple of 32) and the view
+    y[:, 1:] (rows 2 bytes past 16-byte lines); a refused geometry gives
+    None. Card ms at B = 16 and B = 256 (int16), each beside
+    y.t().contiguous(): a transpose with no pad, not the same function."""
+    g = torch.Generator(device=y.device).manual_seed(7)
+    wide = torch.randint(-32768, 32767, (256, y.shape[1]), generator=g,
+                         dtype=torch.int16, device=y.device)
     small = y[:8, :9001].contiguous()
-    for yy in (small, small.float(), y, y.float()):
-        L = yy.shape[1]
-        got = PC.transpose_pad_tm(yy, (L // 4410) * 4410, 512)
-        lfull = PC.transpose_pad_geometry(yy, (L // 4410) * 4410, 512)
-        check_exact(f"transpose_pad {yy.dtype} {tuple(yy.shape)}", got,
-                    PC.transpose_pad_plain(yy, 256, lfull))
+    for yy in (small, y, wide, wide[:40], y[:, 1:]):
+        for cast in (yy, yy.float()):
+            L = cast.shape[1]
+            got = PC.transpose_pad_tm(cast, (L // 4410) * 4410, 512)
+            lfull = PC.transpose_pad_geometry(cast, (L // 4410) * 4410, 512)
+            check_exact(f"transpose_pad {cast.dtype} {tuple(cast.shape)} "
+                        f"stride {cast.stride(0)}", got,
+                        PC.transpose_pad_plain(cast, 256, lfull))
+            del got
     if PC.transpose_pad_tm(y[:, :2000], 0, 512) is not None:
         raise AssertionError("transpose_pad_tm accepted a refused geometry")
-    lfull = PC.transpose_pad_geometry(y, (y.shape[1] // 4410) * 4410, 512)
-    res.update(bound((y.shape[1] + lfull) * y.shape[0] * y.element_size()))
-    res["ms"] = time_ms(lambda: PC.transpose_pad(y, 256, lfull))
-    res["card_ms"] = graph_ms(lambda: PC.transpose_pad(y, 256, lfull))
-    res["plain_ms"] = time_ms(lambda: PC.transpose_pad_plain(y, 256, lfull))
-    log(f"[7 probes] #7 transpose_pad: int16 and f32 exact; serving int16 "
-        f"{res['ms']:.4f} ms eager, {res['card_ms']:.4f} ms on the card, vs "
-        f"plain {res['plain_ms']:.4f} ms")
+    res = {}
+    for key, yy in (("", y), ("b256_", wide)):
+        lfull = PC.transpose_pad_geometry(yy, (yy.shape[1] // 4410) * 4410,
+                                          512)
+        b = bound((yy.shape[1] + lfull) * yy.shape[0] * yy.element_size())
+        res[key + "bound_ms"], res[key + "bound_by"] = b["bound_ms"], \
+            b["bound_by"]
+        res[key + "ms"] = time_ms(lambda: PC.transpose_pad(yy, 256, lfull))
+        res[key + "card_ms"] = graph_ms(
+            lambda: PC.transpose_pad(yy, 256, lfull))
+        res[key + "plain_ms"] = time_ms(
+            lambda: PC.transpose_pad_plain(yy, 256, lfull))
+        res[key + "transpose_only_card_ms"] = graph_ms(
+            lambda: yy.t().contiguous())
+    del wide
+    log(f"[7 probes] #7 transpose_pad: int16 and f32 exact at (8, 9001), "
+        f"(16, {y.shape[1]}), (256, {y.shape[1]}), (40, {y.shape[1]}) and "
+        f"the view y[:, 1:]; int16 B = 16: {res['ms']:.4f} ms eager, "
+        f"{res['card_ms']:.4f} ms on the card (bound {res['bound_ms']:.5f} "
+        f"ms, {res['bound_ms'] / res['card_ms']:.1%}), plain "
+        f"{res['plain_ms']:.4f} ms; B = 256: {res['b256_ms']:.4f} ms "
+        f"eager, {res['b256_card_ms']:.4f} ms on the card "
+        f"(bound {res['b256_bound_ms']:.5f} ms, "
+        f"{res['b256_bound_ms'] / res['b256_card_ms']:.1%}), plain "
+        f"{res['b256_plain_ms']:.4f} ms; "
+        f"y.t().contiguous() (transpose only, no pad: not the same "
+        f"function) {res['transpose_only_card_ms']:.4f} / "
+        f"{res['b256_transpose_only_card_ms']:.4f} ms on the card")
     return res
 
 
@@ -3392,7 +3453,7 @@ def main() -> int:
         r["held"] for tag, r in dp["serve"].items() if tag != "meter"]
     served_cqt_d = max(h["cqt_d"] for h in held)
     served_c_d = max(h["c_d"] for h in held)
-    st, sm = probe["stages"], probe["small"]
+    st, sm, tp = probe["stages"], probe["small"], probe["transpose"]
 
     def row(name, source, replaces, launches, err, ms, plain_ms, b,
             library_ms, **extra):
@@ -3461,7 +3522,9 @@ def main() -> int:
             m["window_copy"], 0.0, probe["window"]["ms"],
             probe["window"]["plain_ms"],
             {"bound_ms": probe["window"]["bound_ms"], "bound_by": "bytes"},
-            None, card_ms=probe["window"]["card_ms"]),
+            None, card_ms=probe["window"]["card_ms"],
+            card_ms_100=probe["window"]["card_ms_100"],
+            variants=probe["window"]["variants"]),
         row("cqt_response stages (#6, load/realign/gemm/full, 8 octaves; "
             "ms summed)", "cqt_response.cu",
             "scripts/probe_cqt_kernel_stages.py:59",
@@ -3470,10 +3533,16 @@ def main() -> int:
             {"bound_ms": st["bound_ms"],
              "bound_by": "operations" if 2 * st["ops_ms"] > st["bound_ms"]
              else "bytes"}, None, card_ms=sum(st["card_ms"].values())),
-        row("transpose_pad (#7)", "transpose_pad.cu",
+        row("transpose_pad (#7, int16 B = 16)", "transpose_pad.cu",
             "scripts/experiment_transpose_kernel.py:82", m["transpose_pad"],
-            0.0, probe["transpose"]["ms"], probe["transpose"]["plain_ms"],
-            probe["transpose"], None, card_ms=probe["transpose"]["card_ms"]),
+            0.0, tp["ms"], tp["plain_ms"], tp, None, card_ms=tp["card_ms"],
+            b256_ms=tp["b256_ms"], b256_card_ms=tp["b256_card_ms"],
+            b256_plain_ms=tp["b256_plain_ms"],
+            b256_bound_ms=tp["b256_bound_ms"],
+            transpose_only_card_ms=tp["transpose_only_card_ms"],
+            b256_transpose_only_card_ms=tp["b256_transpose_only_card_ms"],
+            transpose_only="y.t().contiguous(): transpose only, no pad; "
+                           "not the same function"),
         row("launch_probe (#8, grid 201)", "probe_launch.cu",
             "scripts/probe_pallas_overhead.py:50", m["launch_probe"], 0.0,
             sm["launch_ms"], sm["launch_plain_ms"], sm["launch_bound"],
