@@ -50,50 +50,6 @@ constexpr int kAlign = 16;          // the TPU's sublane alignment of starts
 constexpr int kMaxTile = 8;         // tile_t <= the TPU's _TILE_T
 constexpr int kDbSteps = 4;         // steps one dma3_db block walks
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the phase of `parity` to complete. A phase that never does (a
-// byte count that disagrees with the copies) traps, failing the launch,
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
-
 struct Geometry {
   const int16_t* x;
   long long stride;
@@ -108,6 +64,8 @@ __device__ void issue(const Geometry& g, int step, int c0, int nc,
                       int16_t* dst, long long* soff, uint64_t* bar) {
   const int lane = threadIdx.x;
   const bool big = g.variant == kDma3Big;
+  // lagging lanes may still read soff in the previous step's copy loop
+  __syncwarp();
   const int n_win = g.n_win, span = g.span;
   if (lane < n_win) {
     const long long t = static_cast<long long>(step) * g.tile_t + lane;
@@ -124,14 +82,14 @@ __device__ void issue(const Geometry& g, int step, int c0, int nc,
   const uint32_t bytes = static_cast<uint32_t>(span) * 2;
   const int n_copies = n_win * nc;
   __syncwarp();
-  if (lane == 0) mbar_arrive_expect_tx(bar, bytes * n_copies);
+  if (lane == 0) akt_mbar_arrive_expect_tx(bar, bytes * n_copies);
   __syncwarp();
   // the slot was last read (generic proxy) before the caller's __syncwarp
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   for (int i = lane; i < n_copies; i += kCopyThreads) {
     const int j = i / nc, c = i - j * nc;
-    bulk_load(dst + (static_cast<long long>(j) * g.chunk + c) * span,
-              g.x + (c0 + c) * g.stride + soff[j], bytes, bar);
+    akt_bulk_load(dst + (static_cast<long long>(j) * g.chunk + c) * span,
+                  g.x + (c0 + c) * g.stride + soff[j], bytes, bar);
   }
 }
 
@@ -154,8 +112,8 @@ __global__ void __launch_bounds__(kGridThreads)
   const int n_steps = db ? min(kDbSteps, grid_n - step0) : 1;
   const long long slot_elems = g.slot_elems;
   if (tid == 0) {
-    mbar_init(&bars[0]);
-    mbar_init(&bars[1]);
+    akt_mbar_init(&bars[0]);
+    akt_mbar_init(&bars[1]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncwarp();
@@ -167,7 +125,7 @@ __global__ void __launch_bounds__(kGridThreads)
             &bars[slot ^ 1]);
     // every block waits for its copies, the writer or not: none exits
     // with copies in flight
-    mbar_wait(&bars[slot], (s >> 1) & 1);
+    akt_mbar_wait(&bars[slot], (s >> 1) & 1);
     if (writer && tid < g.tile_t)
       out[(step0 + s) * g.tile_t + tid] =
           static_cast<float>(smem[slot * slot_elems + tid]);

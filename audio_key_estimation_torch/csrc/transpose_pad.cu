@@ -22,8 +22,9 @@
 //     samples per clip (r -> source is 1-Lipschitz). Lanes of warp 0 each
 //     issue one bulk copy (cp.async.bulk, the copy engine) of its clip's
 //     span, widened to 16-byte boundaries and clamped to the tensor's
-//     bytes; the few bytes a clamp cuts are copied by the lane. Every
-//     copy of a stage completes on that stage's mbarrier. One path for
+//     bytes; the few bytes a clamp cuts are copied by the lane, before
+//     lane 0 arrives on the stage's mbarrier with the stage's byte count,
+//     which every copy of the stage then completes. One path for
 //     any row stride: each clip's span keeps its own offset in its slot;
 //   * item i+1's copies are issued before item i is transposed;
 //   * transpose: in interior runs (every row a signal row) whose chunk is
@@ -51,50 +52,6 @@ constexpr int kThreads = 256;
 constexpr int kMaxChunk = 32;  // clips a work item stages (lanes of warp 0)
 constexpr int kSlotPad = 128;  // a slot's bytes beyond the run: 16-byte
                                // widening plus a bank shift of <= 112
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], 1;\n" ::"r"(smem_u32(bar))
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar,
-                                                      uint32_t bytes) {
-  asm volatile(
-      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
-          smem_u32(bar)),
-      "r"(bytes)
-      : "memory");
-}
-
-// Wait for the phase of `parity` to complete. A phase that never does (a
-// byte count that disagrees with the copies) traps, failing the launch,
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  uint32_t done = 0;
-  for (uint32_t tries = 0; !done; ++tries) {
-    if (tries == (1u << 26)) __trap();
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(smem_u32(bar)), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void bulk_load(void* dst, const void* src,
-                                          uint32_t bytes, uint64_t* bar) {
-  asm volatile(
-      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
-      "l"(src), "r"(bytes), "r"(smem_u32(bar))
-      : "memory");
-}
 
 __device__ __forceinline__ long long source_row(long long r, long long L,
                                                 long long half) {
@@ -199,15 +156,8 @@ __device__ void issue(const Args& a, const Item& it, char* stage,
       clo = chi = p + n;  // too short to widen inside the tensor
     }
   }
-  const uint32_t total = __reduce_add_sync(0xffffffffu, bytes);
-  if (lane == 0) mbar_arrive_expect_tx(bar, total);
-  __syncwarp();
+  char* slot = stage + slot_of<T>(a, lane);
   if (lane < it.nb && it.span > 0) {
-    char* slot = stage + slot_of<T>(a, lane);
-    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-    if (bytes)
-      bulk_load(slot + (clo - lo), reinterpret_cast<const void*>(clo), bytes,
-                bar);
     // the samples a clamp cut off the bulk copy (< 16 bytes each end)
     for (u64 q = p; q < min(clo, p + n); q += sizeof(T))
       *reinterpret_cast<T*>(slot + (q - lo)) =
@@ -215,6 +165,17 @@ __device__ void issue(const Args& a, const Item& it, char* stage,
     for (u64 q = max(chi, p); q < p + n; q += sizeof(T))
       *reinterpret_cast<T*>(slot + (q - lo)) =
           *reinterpret_cast<const T*>(q);
+  }
+  const uint32_t total = __reduce_add_sync(0xffffffffu, bytes);
+  // the lanes' stores above come before the arrival, which releases them
+  // to the waiters: the phase may complete at once (total 0)
+  __syncwarp();
+  if (lane == 0) akt_mbar_arrive_expect_tx(bar, total);
+  __syncwarp();
+  if (bytes) {
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    akt_bulk_load(slot + (clo - lo), reinterpret_cast<const void*>(clo),
+                  bytes, bar);
   }
 }
 
@@ -298,8 +259,8 @@ __global__ void __launch_bounds__(kThreads)
   if (w >= n_work) return;  // uniform across the block
   const int stage_bytes = a.chunk * a.row_bytes;
   if (threadIdx.x == 0) {
-    mbar_init(&bars[0]);
-    mbar_init(&bars[1]);
+    akt_mbar_init(&bars[0]);
+    akt_mbar_init(&bars[1]);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
@@ -315,7 +276,7 @@ __global__ void __launch_bounds__(kThreads)
       if (threadIdx.x < 32)
         issue<T>(a, next, smem + (s ^ 1) * stage_bytes, &bars[s ^ 1]);
     }
-    mbar_wait(&bars[s], (i >> 1) & 1);
+    akt_mbar_wait(&bars[s], (i >> 1) & 1);
     emit<T>(a, cur, smem + s * stage_bytes);
     __syncthreads();
     w = wn;

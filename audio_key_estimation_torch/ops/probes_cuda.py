@@ -257,10 +257,12 @@ def transpose_plan(B: int, lfull: int, itemsize: int,
     a clip (chunk rounded up to a power of two; 2 to 16 KB, a multiple of
     128); as many blocks per SM as two stages leave room for (1 KB a
     block reserved), at most TP_MAX_BLOCKS_PER_SM, and no more blocks
-    than work items. Chosen by `scripts/time_copy_kernels.py --sweep` on
-    the H100 (int16, 120 s): 2 KB a clip was fastest at B = 16 (3 blocks
-    an SM) and at B = 256 (chunks of 32, 1 block an SM), 1 KB and 0.5 KB
-    slower at every block count."""
+    than work items. This plan is the one place that fixes the kernel's
+    run_rows, chunk and grid. Chosen by a sweep on the H100 (int16,
+    120 s; `scripts/time_copy_kernels.py --sweep` at commit 3e027df, not
+    kept): 2 KB a clip was fastest at B = 16 (3 blocks an SM) and at
+    B = 256 (chunks of 32, 1 block an SM), 1 KB and 0.5 KB slower at
+    every block count."""
     chunk = min(B, TP_MAX_CHUNK)
     n_chunks = -(-B // chunk)
     cp = 1 << (chunk - 1).bit_length()

@@ -2,17 +2,14 @@
 window_copy (csrc/probe_window_copy.cu) and #7 transpose_pad
 (csrc/transpose_pad.cu), held to their rules on the CPU.
 
-The kernels run only on the card (chip_smoke.py phase 7 holds them
-exactly against their plain versions). Here `window_plan` and
-`transpose_plan` (ops/probes_cuda.py) are checked for coverage (every
-(window, clip) and every (output row, clip) exactly once), shared memory
-(<= 227 KB a block), the bulk copies' rules (sizes and addresses on 16
-bytes, every widened span inside the tensor) and a grid that fills the
-SMs. transpose_pad's addressing is replayed byte by byte in numpy
-(`Emulated` below mirrors item_of, slot_of, misalign, issue and emit of
-transpose_pad.cu) and must give transpose_pad_plain's output exactly,
-at odd L, B in {1, 8, 13, 16, 40, 256}, int16 and float32, contiguous
-rows, an odd row stride and a view that starts off 16 bytes.
+The kernels run only on the card: chip_smoke.py phase 7 holds them
+exactly against their plain versions at odd strides, views, tiny batches
+and B in {13, 16, 40, 256}. Here `window_plan` and `transpose_plan`
+(ops/probes_cuda.py) are checked for coverage (every (window, clip) and
+every (output row, clip) exactly once), shared memory (<= 227 KB a
+block), the bulk copies' rules (sizes and addresses on 16 bytes, spans
+that fit their slots and stay inside the stream) and a grid that fills
+the SMs.
 """
 
 import numpy as np
@@ -20,226 +17,14 @@ import pytest
 import torch
 
 from audio_key_estimation_torch.ops import probes_cuda as PC
-from audio_key_estimation_torch.scripts import (probe_dma_rate,
-                                                time_copy_kernels)
+from audio_key_estimation_torch.scripts import probe_dma_rate
 
 N_SM = 132
-THREADS = PC.TP_THREADS
 
 
 # ---------------------------------------------------------------------------
-# #7 transpose_pad: a byte-level replay of the kernel's addressing
+# #7 transpose_pad
 # ---------------------------------------------------------------------------
-
-def source_row(r, L, half):
-    """transpose_pad.cu::source_row, on arrays of rows."""
-    r = np.asarray(r, np.int64)
-    return np.where(r < half, half - r,
-                    np.where(r < half + L, r - half,
-                             np.where(r < 2 * half + L + 1,
-                                      2 * L + half - 2 - r, -1)))
-
-
-class Emulated:
-    """transpose_pad.cu on a flat byte buffer: the tensor's element (0, 0)
-    at byte `base`, rows `stride` elements apart; bytes outside the
-    tensor hold a poison that must never reach the output."""
-
-    def __init__(self, y: np.ndarray, stride: int, base: int, half: int,
-                 lfull: int, plan: PC.TransposePlan):
-        self.B, self.L = y.shape
-        self.item = y.dtype.itemsize
-        self.dtype, self.stride, self.base = y.dtype, stride, base
-        self.half, self.lfull, self.plan = half, lfull, plan
-        nbytes = base + ((self.B - 1) * stride + self.L) * self.item + 64
-        self.mem = np.full(nbytes, 0xA5, np.uint8)
-        for b in range(self.B):
-            at = base + b * stride * self.item
-            self.mem[at:at + self.L * self.item] = y[b].view(np.uint8)
-        self.begin = base
-        self.end = base + ((self.B - 1) * stride + self.L) * self.item
-        self.copies = []                 # (src, bytes, dst in its slot)
-        self.paths = {"fast": 0, "element": 0}
-
-    # item_of
-    def item_of(self, w):
-        p, half, L = self.plan, self.half, self.L
-        run, ch = divmod(w, p.n_chunks)
-        b0 = ch * p.chunk
-        nb = min(p.chunk, self.B - b0)
-        r0 = run * p.run_rows
-        nr = min(p.run_rows, self.lfull - r0)
-        last = min(r0 + nr, 2 * half + L + 1) - 1
-        interior = r0 >= half and r0 + p.run_rows <= half + L \
-            and nr == p.run_rows
-        if last < r0:
-            return r0, 0, nr, b0, nb, 0, interior
-        s0, s1 = (int(source_row(r, L, half)) for r in (r0, last))
-        lo, hi = min(s0, s1), max(s0, s1)
-        if r0 <= half <= last:
-            lo = 0
-        if r0 <= half + L - 1 <= last:
-            hi = L - 1
-        return r0, lo, nr, b0, nb, hi - lo + 1, interior
-
-    def slot_of(self, j):
-        e = 16 // self.item
-        cp = 1 << (self.plan.chunk - 1).bit_length()
-        shift = ((np.asarray(j) // e) * (128 * e // cp)) & (PC.TP_SLOT_PAD
-                                                            - 16)
-        return np.asarray(j) * self.plan.row_bytes + shift
-
-    def misalign(self, s_lo, b0, j):
-        return (self.base + ((b0 + np.asarray(j)) * self.stride + s_lo)
-                * self.item) & 15
-
-    def issue(self, it):
-        r0, s_lo, nr, b0, nb, span, _ = it
-        stage = np.full(self.plan.chunk * self.plan.row_bytes, 0x5A,
-                        np.uint8)
-        begin = (self.begin + 15) & ~15
-        end = self.end & ~15
-        for lane in range(nb if span else 0):
-            p = self.base + ((b0 + lane) * self.stride + s_lo) * self.item
-            n = span * self.item
-            lo, hi = p & ~15, (p + n + 15) & ~15
-            clo, chi = max(lo, begin), min(hi, end)
-            slot = int(self.slot_of(lane))
-            if chi > clo:
-                nbytes = chi - clo
-                self.copies.append((clo, nbytes, slot + clo - lo, slot))
-                stage[slot + clo - lo:slot + chi - lo] = self.mem[clo:chi]
-            else:
-                clo = chi = p + n
-            for q in range(p, min(clo, p + n), self.item):
-                stage[slot + q - lo:slot + q - lo + self.item] = \
-                    self.mem[q:q + self.item]
-            for q in range(max(chi, p), p + n, self.item):
-                stage[slot + q - lo:slot + q - lo + self.item] = \
-                    self.mem[q:q + self.item]
-        return stage
-
-    def emit(self, it, stage, out, written):
-        r0, s_lo, nr, b0, nb, span, interior = it
-        B, item = self.B, self.item
-        e_n = 16 // item
-        vec = nb == B or (B * item % 16 == 0 and self.plan.chunk * item % 16
-                          == 0 and nb % e_n == 0)
-
-        def read(byte_off):
-            idx = np.asarray(byte_off)[..., None] + np.arange(item)
-            return stage[idx]
-
-        fast = interior and vec and nb & (nb - 1) == 0
-        self.paths["fast" if fast else "element"] += 1
-        if fast:
-            sweep = THREADS * e_n // nb
-            tid = np.arange(THREADS)[:, None]
-            e = tid * e_n + np.arange(e_n)
-            j, r = e & (nb - 1), e // nb
-            off = self.slot_of(j) + self.misalign(s_lo, b0, j) + r * item
-            e0 = tid[:, 0] * e_n
-            o = ((r0 + e0 // nb) * B + b0 + (e0 & (nb - 1))) * item
-            nq = self.plan.run_rows * nb // e_n
-            for n in range(-(-nq // THREADS)):
-                live = tid[:, 0] + n * THREADS < nq
-                v = read(off[live] + n * sweep * item)     # (t, E, item)
-                dst = (o[live] + n * sweep * B * item)[:, None] \
-                    + np.arange(16)
-                assert (dst[:, 0] % 16 == 0).all()
-                out[dst] = v.reshape(-1, 16)
-                written[dst] += 1
-            return
-        e = np.arange(nr * nb)
-        r, j = e // nb, e % nb
-        row = r0 + r
-        src = source_row(row, self.L, self.half)
-        ok = src >= 0
-        v = np.zeros((e.size, item), np.uint8)
-        v[ok] = read(self.slot_of(j[ok]) + self.misalign(s_lo, b0, j[ok])
-                     + (src[ok] - s_lo) * item)
-        dst = ((row * B + b0 + j) * item)[:, None] + np.arange(item)
-        out[dst] = v
-        written[dst] += 1
-
-    def run(self):
-        out = np.zeros(self.lfull * self.B * self.item, np.uint8)
-        written = np.zeros_like(out, np.int32)
-        p = self.plan
-        for w in range(p.n_runs * p.n_chunks):
-            it = self.item_of(w)
-            self.emit(it, self.issue(it), out, written)
-        return out.view(self.dtype).reshape(self.lfull, self.B), written
-
-
-def small_plan(B, lfull, item, run_rows):
-    """transpose_plan with shorter runs, so that a small lfull still has
-    head, interior, tail and zero runs (the kernel takes any run_rows
-    whose bytes are a multiple of 128)."""
-    p = PC.transpose_plan(B, lfull, item, N_SM)
-    row_bytes = run_rows * item + PC.TP_SLOT_PAD
-    return p._replace(run_rows=run_rows, n_runs=-(-lfull // run_rows),
-                      row_bytes=row_bytes, smem=2 * p.chunk * row_bytes)
-
-
-def clips(B, L, dtype, seed=0):
-    rng = np.random.default_rng(seed)
-    return (rng.uniform(-0.5, 0.5, (B, L)) * 32767).astype(dtype)
-
-
-LAYOUTS = {   # (row stride, leading elements) from L and 16 // itemsize
-    "contiguous": lambda L, e: (L, 0),                # L odd: odd stride
-    "16-byte rows": lambda L, e: (-(-L // e) * e, 0),
-    "view y[:, 1:]": lambda L, e: (-(-(L + 1) // e) * e, 1),
-}
-
-
-@pytest.mark.parametrize("dtype", [np.int16, np.float32])
-@pytest.mark.parametrize("B", [1, 8, 13, 16, 40, 256])
-@pytest.mark.parametrize("layout", list(LAYOUTS))
-def test_transpose_replay_matches_plain(B, dtype, layout):
-    """Every (output row, clip) written exactly once, equal to
-    transpose_pad_plain, with every bulk copy a 16-byte multiple on
-    16-byte addresses inside the tensor and inside its slot."""
-    L, half = 1237 if B <= 16 else 613, 64
-    lfull = 2 * half + L + 1 + 150            # zero rows at the end
-    y = clips(B, L, dtype, seed=B)
-    item = y.dtype.itemsize
-    stride, lead = LAYOUTS[layout](L, 16 // item)
-    run_rows = 128 // item * (2 if B < 16 else 1)
-    plan = small_plan(B, lfull, item, run_rows)
-    em = Emulated(y, stride, base=96 + lead * item, half=half, lfull=lfull,
-                  plan=plan)
-    got, written = em.run()
-    assert (written == 1).all()
-    # edge runs always; interior runs take the 16-byte path where the
-    # chunk is a power of two
-    assert em.paths["element"] > 0
-    assert (em.paths["fast"] > 0) == (B != 13)
-    ref = PC.transpose_pad_plain(torch.from_numpy(y), half, lfull).numpy()
-    np.testing.assert_array_equal(got, ref)
-    lo_ok = (em.begin + 15) & ~15
-    for src, nbytes, dst, slot in em.copies:
-        assert nbytes % 16 == 0 and src % 16 == 0 and dst % 16 == 0
-        assert lo_ok <= src and src + nbytes <= em.end
-        assert slot <= dst and dst + nbytes <= slot + plan.row_bytes - (
-            slot % 128)
-
-
-def test_transpose_replay_at_the_real_plan():
-    """The plan the wrapper takes, (8, 9001) int16 and float32 at the
-    TPU geometry's lfull (the chip_smoke case), replayed exactly."""
-    for dtype in (np.int16, np.float32):
-        y = clips(8, 9001, dtype)
-        lfull = PC.transpose_pad_geometry(torch.from_numpy(y),
-                                          (9001 // 4410) * 4410, 512)
-        plan = PC.transpose_plan(8, lfull, y.dtype.itemsize, N_SM)
-        got, written = Emulated(y, 9001, 0, 256, lfull, plan).run()
-        assert (written == 1).all()
-        np.testing.assert_array_equal(
-            got, PC.transpose_pad_plain(torch.from_numpy(y), 256,
-                                        lfull).numpy())
-
 
 @pytest.mark.parametrize("dtype", [np.int16, np.float32])
 @pytest.mark.parametrize("B", [1, 8, 13, 16, 40, 256])
@@ -275,27 +60,41 @@ def test_transpose_plan_fits_and_fills(B, dtype, n_sm):
     assert p.chunk * (p.run_rows * item + 16) < 1 << 20
 
 
+SERVING_L, SERVING_LFULL, HALF = 2_646_000, 2_650_112, 256
+
+
+@pytest.fixture(scope="module")
+def serving_sources():
+    """Output row -> source sample of the serving geometry, read off
+    transpose_pad_plain itself (samples numbered from 1; 0: a zero row)."""
+    y = torch.arange(1, SERVING_L + 1, dtype=torch.float64)[None]
+    return PC.transpose_pad_plain(y, HALF, SERVING_LFULL)[:, 0].long() - 1
+
+
 @pytest.mark.parametrize("dtype", [np.int16, np.float32])
-@pytest.mark.parametrize("chunk", [8, 16, 32])
-def test_transpose_slots_spread_a_warps_reads_over_banks(dtype, chunk):
-    """In an interior run with 16-byte-aligned rows, the words the 32
-    lanes of a warp read in one step of the fast path lie in distinct
-    banks (two lanes may share a word)."""
+@pytest.mark.parametrize("B", [1, 8, 13, 16, 40, 256])
+def test_transpose_runs_fit_their_slots(B, dtype, serving_sources):
+    """Each run's rows draw on one span of at most run_rows samples a
+    clip; widened to 16-byte lines (at most 16 bytes more) and shifted
+    for banks (at most TP_SLOT_PAD - 16 bytes) it fits its clip's slot,
+    and a stage's bulk bytes stay under an mbarrier phase's 2^20."""
     item = np.dtype(dtype).itemsize
-    plan = PC.transpose_plan(chunk, 1 << 16, item, N_SM)
-    em = Emulated(np.zeros((chunk, 4096), dtype), 4096, 0, 64, 1 << 16,
-                  plan)
-    e_n = 16 // item
-    for warp in range(THREADS // 32):
-        tid = warp * 32 + np.arange(32)
-        for k in range(e_n):
-            e = tid * e_n + k
-            j, r = e % chunk, e // chunk
-            word = (em.slot_of(j) + r * item) // 4
-            banks = {}
-            for wd in set(word.tolist()):
-                banks.setdefault(wd % 32, set()).add(wd)
-            assert max(len(v) for v in banks.values()) == 1, (warp, k)
+    p = PC.transpose_plan(B, SERVING_LFULL, item, N_SM)
+    src = torch.full((p.n_runs * p.run_rows,), -1, dtype=torch.long)
+    src[:SERVING_LFULL] = serving_sources
+    src = src.view(p.n_runs, p.run_rows)
+    has = src >= 0
+    big = torch.iinfo(torch.long).max
+    lo = torch.where(has, src, big).min(1).values
+    hi = src.max(1).values
+    live = has.any(1)
+    span = (hi - lo + 1)[live]
+    assert int(live.sum()) == -(-(2 * HALF + SERVING_L + 1) // p.run_rows)
+    assert int(span.max()) <= p.run_rows
+    assert p.run_rows * item % 16 == 0
+    widened = p.run_rows * item + 16
+    assert widened + PC.TP_SLOT_PAD - 16 <= p.row_bytes
+    assert p.chunk * widened < 1 << 20
 
 
 # ---------------------------------------------------------------------------
@@ -386,12 +185,3 @@ def test_window_copies_are_bulk_copies_inside_the_stream(variant, geometry):
             assert off % PC.ALIGN == 0 and 0 <= off and off + span <= length
     plan = PC.window_plan(variant, 4, t_pad // tile_t, tile_t, win, N_SM)
     assert plan.smem % 16 == 0 and (span * 2) % 16 == 0
-
-
-def test_time_copy_kernels_refuses_without_cuda():
-    """The parent-against-change timer, like every entry point, exits
-    naming CUDA on a machine without it."""
-    if torch.cuda.is_available():
-        pytest.skip("this check needs a machine without CUDA")
-    with pytest.raises(SystemExit, match="CUDA"):
-        time_copy_kernels.main(["--tag", "cpu"])
