@@ -1038,7 +1038,8 @@ def serve_variants(paths, device) -> dict:
         held = hold_served(f"variant {name}", est, feats, stacks)
         del feats, stacks
         dcpu = cpu_cross_check(est, weights, cfg)
-        split = model_split(est, paths, want["conv7_layer"] > 0)
+        split = model_split(f"variant {name}", est, paths,
+                            want["conv7_layer"] > 0)
         res[name] = {"launches": launches, **agree, "cpu_key_d": dcpu,
                      "wall_ms": wall * 1e3, "plain_wall_ms": wall_plain * 1e3,
                      "split": split, "held": held}
@@ -1050,7 +1051,8 @@ def serve_variants(paths, device) -> dict:
             f"(plain path {wall_plain * 1e3:.1f} ms); model stage "
             f"{split['total_ms']:.3f} ms device, kernel C "
             f"{split['conv7_ms']:.3f} ms "
-            f"({split['conv7_ms'] / split['total_ms']:.1%}), largest "
+            f"({split['conv7_ms'] / split['total_ms']:.1%}; "
+            f"{split['pads_lost']} pad rows lost), largest "
             + "; ".join(f"{k[:50]} {v:.3f} ms" for k, v in split["top"][:2])
             + towers_text(split) + f" ({card_line()})")
         log(held_text(f"variant {name}", held))
@@ -1064,7 +1066,9 @@ def serve_variants(paths, device) -> dict:
                 f"{split['conv_fp32']}): "
                 f"{split['total_ms']:.3f} ms in {split['kernels']} kernels "
                 f"({split['launch_records']} launch calls on the host, "
-                f"{split['unrecorded']} without a device row); "
+                f"{split['unrecorded']} without a device row; the trace "
+                f"lost {split['pads_lost']} of its {PAD_LAUNCHES} pad "
+                "rows); "
                 f"kernel C {split['conv7_ms']:.3f} ms "
                 f"({split['conv7_ms'] / split['total_ms']:.1%}, "
                 f"{split['conv7_launches']} launches), the rest "
@@ -1107,7 +1111,7 @@ def serve_local(paths, device, name: str = "default", **kw) -> dict:
     held = hold_served(f"local {name}", est, feats, stacks)
     del feats, stacks
     audio_min = len(paths) * CLIP_SECONDS / 60.0
-    split = model_split(est, paths, local=True)
+    split = model_split(f"local {name}", est, paths, local=True)
     log(f"[4 serve] local mode {name} (predict_files_local): {n_win} windows"
         f" per clip, first [{w0.start}, {w0.end}) s; launches A "
         f"{launches['cascade_pad']} B {launches['octave_response']} C "
@@ -1116,7 +1120,8 @@ def serve_local(paths, device, name: str = "default", **kw) -> dict:
         f"{audio_min / wall:.1f} audio-min/s; model stage "
         f"{split['total_ms']:.3f} ms device, kernel C "
         f"{split['conv7_ms']:.3f} ms "
-        f"({split['conv7_ms'] / split['total_ms']:.1%})"
+        f"({split['conv7_ms'] / split['total_ms']:.1%}; "
+        f"{split['pads_lost']} pad rows lost)"
         + towers_text(split) + f" ({card_line()})")
     log(held_text(f"local mode {name}", held))
     return {"launches": launches, "windows": n_win, **agree,
@@ -1750,82 +1755,104 @@ def stage_ms(est: KeyEstimator, paths) -> dict:
     return {n: (b - a) * 1e3 for n, a, b in zip(names, t, t[1:])}
 
 
-def device_rows(fn) -> dict:
-    """fn() once as a warm-up, then once under torch.profiler: its device
-    rows only (kernels and copies; the host's aten rows carry the same
-    time again), summed by name, with kernel C's rows apart. `unrecorded`
-    counts the kernel launches the trace holds on the host's side (the
-    runtime's launch calls) whose kernel has no device row under the
-    same correlation id: a trace cut short on the device's side."""
-    fn()
+# torch.profiler on the H100 (torch 2.11, CUDA 12.8) drops the device rows
+# of a session's first launches, more of them the longer the process has
+# run (PERF.md section 7). A profiled call is therefore preceded by
+# PAD_LAUNCHES one-element kernels, whose rows take that loss and are left
+# out of every sum.
+PAD_LAUNCHES = 1024
+
+
+def profiled(fn) -> dict:
+    """fn() once under torch.profiler, after PAD_LAUNCHES one-element
+    kernels: the profile, fn's device rows (kernels and copies; the pads'
+    left out), fn's kernel launches (the runtime's launch calls on the
+    host), how many of them have no device row under the same
+    correlation id (`unrecorded`: the trace lost some of fn's records),
+    and how many pad rows the trace lost (`pads_lost`)."""
+    pad = torch.zeros(1, device="cuda")
     torch.cuda.synchronize()
     act = torch.profiler.ProfilerActivity
     with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
+        for _ in range(PAD_LAUNCHES):
+            pad.add_(1.0)
         fn()
         torch.cuda.synchronize()
+    cuda = torch.autograd.DeviceType.CUDA
+    events = prof.events()
+    launches = sorted((e for e in events if e.device_type != cuda
+                       and "LaunchKernel" in e.name),
+                      key=lambda e: e.time_range.start)
+    pads = {e.id for e in launches[:PAD_LAUNCHES]}
+    ours = {e.id for e in launches[PAD_LAUNCHES:]}
+    recorded = {e.id for e in events if e.device_type == cuda}
+    return {"prof": prof,
+            "rows": [e for e in events
+                     if e.device_type == cuda and e.id not in pads],
+            "launch_records": len(ours),
+            "unrecorded": len(ours - recorded),
+            "pads_lost": len(pads - recorded)}
+
+
+def device_rows(fn) -> dict:
+    """fn() once as a warm-up, then once profiled (profiled): its device
+    rows only (kernels and copies; the host's aten rows carry the same
+    time again), summed by name, with kernel C's rows apart."""
+    fn()
+    torch.cuda.synchronize()
+    p = profiled(fn)
     rows = {}
-    n = conv7 = 0
+    conv7 = 0
     conv7_us = 0.0
-    launched, recorded = set(), set()
-    for e in prof.events():
-        if e.device_type != torch.autograd.DeviceType.CUDA:
-            if "LaunchKernel" in e.name:
-                launched.add(e.id)
-            continue
-        recorded.add(e.id)
+    for e in p["rows"]:
         us = e.time_range.elapsed_us()
         rows[e.name] = rows.get(e.name, 0.0) + us / 1e3
-        n += 1
         if "conv7_kernel" in e.name:
             conv7 += 1
             conv7_us += us
-    return {"total_ms": sum(rows.values()), "kernels": n,
+    return {"total_ms": sum(rows.values()), "kernels": len(p["rows"]),
             "conv7_ms": conv7_us / 1e3, "conv7_launches": conv7,
-            "launch_records": len(launched),
-            "unrecorded": len(launched - recorded),
+            "launch_records": p["launch_records"],
+            "unrecorded": p["unrecorded"], "pads_lost": p["pads_lost"],
             "top": sorted(rows.items(), key=lambda kv: -kv[1])[:5],
             "conv_fp32": precision.flags()["cudnn.conv"]}
 
 
 @ieee_float32()
-def model_split(est: KeyEstimator, paths, with_conv7: bool = True,
+def model_split(name: str, est: KeyEstimator, paths, with_conv7: bool = True,
                 local: bool = False) -> dict:
     """The model stage of one served batch on the card (global or local
-    mode): one torch.profiler pass over est.model (or est.local_model),
-    kernel C's rows (which must be there when with_conv7, and absent
-    otherwise) against the rest and the largest rows by name
-    (device_rows); for the multi-scale ensemble also each tower alone on
-    its own CQT (`towers`: model1 at 36, model2 at 12 bins/octave).
-    float32 in IEEE float32, as KeyEstimator.outputs computes it.
-    A trace whose launches lack their device rows (device_rows'
-    `unrecorded`: cut short on the device's side) is logged and profiled
-    again, at most three passes; a whole trace is held to the gate."""
+    mode): one profiled pass over est.model (or est.local_model), kernel
+    C's rows (which must be there when with_conv7, and absent otherwise)
+    against the rest and the largest rows by name (device_rows); every
+    launch of the pass must have its device row. For the multi-scale
+    ensemble also each tower alone on its own CQT (`towers`: model1 at
+    36, model2 at 12 bins/octave). float32 in IEEE float32, as
+    KeyEstimator.outputs computes it."""
     decoded = list(audio_io.decode_many(paths, raw=True))
     sr = decoded[0][1]
     batch, seq, hop = est.make_batch([w for w, _ in decoded], sr)
     net = est.local_model if local else est.model
     with torch.inference_mode():
         mels = est.features(batch, sr, hop)
-        for _ in range(3):
-            res = device_rows(lambda: net(*mels, seq))
-            if not res["unrecorded"]:
-                break
-            log(f"[4 serve] torch.profiler trace cut short: "
-                f"{res['unrecorded']} of {res['launch_records']} launches "
-                f"without a device row ({res['kernels']} device rows): "
-                "profiling again")
+        res = device_rows(lambda: net(*mels, seq))
         if not res["kernels"] or res["unrecorded"] \
                 or bool(res["conv7_launches"]) != with_conv7:
             raise AssertionError(
-                f"profiler saw {res['kernels']} device rows, "
+                f"{name}: profiler saw {res['kernels']} device rows, "
                 f"{res['conv7_launches']} of kernel C, "
                 f"{res['unrecorded']} of {res['launch_records']} launches "
-                "without a device row")
+                f"without a device row ({res['pads_lost']} of "
+                f"{PAD_LAUNCHES} pad rows lost)")
         if est.cfg.multi_scale:
             res["towers"] = {
-                name: device_rows(lambda t=tower, m=mel: t(m, seq))
-                for name, tower, mel in (("model1", net.model1, mels[0]),
-                                         ("model2", net.model2, mels[1]))}
+                k: device_rows(lambda t=tower, m=mel: t(m, seq))
+                for k, tower, mel in (("model1", net.model1, mels[0]),
+                                      ("model2", net.model2, mels[1]))}
+            lost = {k: t["unrecorded"] for k, t in res["towers"].items()}
+            if any(lost.values()):
+                raise AssertionError(f"{name}: launches without a device "
+                                     f"row, by tower: {lost}")
     return res
 
 
@@ -2379,8 +2406,9 @@ def validation_text(tag: str, name: str, v: dict) -> str:
 
 
 def train_split(state, cfg: Config, batch) -> dict:
-    """One train step under torch.profiler: the device time of the step
-    (kernels and copies) and the device time under the step's cuDNN
+    """One train step profiled (profiled: every launch of the step must
+    have its device row): the device time of the step (kernels and
+    copies) and the device time under the step's cuDNN
     forward convolutions, their backward, BatchNorm (cuDNN's forward and
     backward), the running statistics' update and the optimizer (the
     gradient average and Adam's multi-tensor kernels), from key_averages
@@ -2389,12 +2417,13 @@ def train_split(state, cfg: Config, batch) -> dict:
     step = T.make_train_step(cfg, 1, seed=0)
     step(state, batch)
     torch.cuda.synchronize()
-    act = torch.profiler.ProfilerActivity
-    with torch.profiler.profile(activities=[act.CPU, act.CUDA]) as prof:
-        step(state, batch)
-        torch.cuda.synchronize()
-    total = sum(e.time_range.elapsed_us() for e in prof.events()
-                if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    p = profiled(lambda: step(state, batch))
+    if p["unrecorded"]:
+        raise AssertionError(
+            f"train step: {p['unrecorded']} of {p['launch_records']} "
+            f"launches without a device row ({p['pads_lost']} of "
+            f"{PAD_LAUNCHES} pad rows lost)")
+    total = sum(e.time_range.elapsed_us() for e in p["rows"]) / 1e3
     groups = {
         "conv forward": ("aten::cudnn_convolution",
                          "aten::cudnn_convolution_transpose"),
@@ -2408,21 +2437,21 @@ def train_split(state, cfg: Config, batch) -> dict:
         "optimizer": ("aten::_foreach_",),
     }
     rows = {a.key: getattr(a, "device_time_total", 0.0)
-            for a in prof.key_averages()}
+            for a in p["prof"].key_averages()}
     split = {g: sum(t for k, t in rows.items()
                     if any(k == n or (n.endswith("_") and k.startswith(n))
                            for n in names)) / 1e3
              for g, names in groups.items()}
     split["other"] = total - sum(split.values())
     kernels = {}
-    for e in prof.events():
-        if e.device_type == torch.autograd.DeviceType.CUDA:
-            kernels[e.name] = kernels.get(e.name, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+    for e in p["rows"]:
+        kernels[e.name] = kernels.get(e.name, 0.0) \
+            + e.time_range.elapsed_us() / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:4]
     if total <= 0:
         raise AssertionError("profiler saw no device time in a train step")
-    return {"total_ms": total, "split": split, "top": top}
+    return {"total_ms": total, "split": split, "top": top,
+            "pads_lost": p["pads_lost"]}
 
 
 def import_train_sets(roots: dict, cfg: Config, device, tag: str) -> tuple:
@@ -2557,7 +2586,8 @@ def run_train(roots: dict, td: str, device, cfg: Config,
         f" songs/s; peak memory {peak / 2**20:.1f} MiB "
         f"(max_memory_allocated); ({card_line()})")
     log(f"[6 train] {tag}one step on the card (torch.profiler, "
-        f"train_step in IEEE float32): {split['total_ms']:.3f} ms "
+        f"train_step in IEEE float32; {split['pads_lost']} pad rows "
+        f"lost): {split['total_ms']:.3f} ms "
         f"device; " + ", ".join(f"{k} {v_:.3f} ms"
                                 for k, v_ in split["split"].items())
         + "; largest kernels: " + "; ".join(
