@@ -138,6 +138,29 @@ def test_training_entry_points_import_no_jax():
     assert not bad, bad
 
 
+def test_bench_and_serving_loop_import_no_jax():
+    """The port's bench and serving loop load, in a fresh interpreter, no
+    jax, flax, optax or orbax module, no module of the JAX package and
+    not the repository's root bench.py (module `bench`)."""
+    code = textwrap.dedent("""
+        import json, sys
+        from audio_key_estimation_torch import bench
+        from audio_key_estimation_torch.scripts import serving_loop
+        print(json.dumps(sorted(sys.modules)))
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    mods = json.loads(res.stdout.strip().splitlines()[-1])
+    assert {"audio_key_estimation_torch.bench",
+            "audio_key_estimation_torch.scripts.serving_loop"} <= set(mods)
+    bad = [m for m in mods if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "optax", "orbax", "audio_key_estimation_tpu",
+        "bench")]
+    assert not bad, bad
+
+
 def _imported_modules(path: str) -> set:
     """Every module an import statement of the file names."""
     mods = set()
@@ -163,11 +186,12 @@ def _port_sources() -> list:
                          ids=lambda p: os.path.relpath(p, REPO))
 def test_port_sources_import_no_jax_package(path):
     """No import statement of the port, of chip_smoke.py or of the tests'
-    data-parallel worker module names the JAX package, jax, flax, optax
-    or orbax (comments and strings may name a counterpart)."""
+    data-parallel worker module names the JAX package, jax, flax, optax,
+    orbax or the repository's root bench.py (comments and strings may
+    name a counterpart)."""
     bad = {m for m in _imported_modules(path)
            if m.split(".")[0] in ("audio_key_estimation_tpu", "jax", "jaxlib",
-                                  "flax", "optax", "orbax")}
+                                  "flax", "optax", "orbax", "bench")}
     assert not bad, bad
 
 
