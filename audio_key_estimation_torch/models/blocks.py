@@ -73,9 +73,8 @@ class ZeroPadConv(ConvParams):
         self.padding = tuple(padding)
 
     def forward(self, x):
-        return F.conv2d(x, self.weight.to(x.dtype),
-                        None if self.bias is None else self.bias.to(x.dtype),
-                        padding=self.padding)
+        return eqv.conv_with_bias(F.conv2d, x, self.weight, self.bias,
+                                  padding=self.padding)
 
 
 class EquivariantConv(nn.Module):
@@ -136,19 +135,24 @@ class BatchNorm(nn.Module):
         dt = x.dtype
         if self.training and self.data_shard is not None:
             return self._global_batch_norm(x).to(dt)
+        # flax normalizes in float32 (or wider) whatever x's dtype and
+        # rounds the output once; a bf16 F.batch_norm would round inside
+        xf = x.to(torch.promote_types(dt, torch.float32))
+        ft = xf.dtype
         if self.training:
             if self.update_stats:
                 with torch.no_grad():
-                    var, mean = torch.var_mean(x.float(), dim=(0, 2, 3),
+                    var, mean = torch.var_mean(xf.float(), dim=(0, 2, 3),
                                                correction=0)
                     m = self.momentum
                     self.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
                     self.running_var.mul_(1.0 - m).add_(var, alpha=m)
-            return F.batch_norm(x, None, None, self.weight.to(dt),
-                                self.bias.to(dt), True, 0.0, self.eps)
-        return F.batch_norm(x, self.running_mean.to(dt),
-                            self.running_var.to(dt), self.weight.to(dt),
-                            self.bias.to(dt), False, 0.0, self.eps)
+            return F.batch_norm(xf, None, None, self.weight.to(ft),
+                                self.bias.to(ft), True, 0.0,
+                                self.eps).to(dt)
+        return F.batch_norm(xf, self.running_mean.to(ft),
+                            self.running_var.to(ft), self.weight.to(ft),
+                            self.bias.to(ft), False, 0.0, self.eps).to(dt)
 
     def _global_batch_norm(self, x):
         """Normalize by the global micro-batch's statistics

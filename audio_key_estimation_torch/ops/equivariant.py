@@ -14,12 +14,27 @@ the JAX package's, including pads wider than the axis, which
   third_upsample       semitone -> third transposed conv (up_sixth)
   pc_to_pitch_tile     tile pitch classes up to the pitch rows
   pc_to_pitch_memory_add  add pitch classes onto the pitch rows (pc2p_mem)
+  conv_with_bias       a conv's output plus its bias, rounded as in JAX
 """
 
 from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+
+
+def conv_with_bias(conv, x: torch.Tensor, weight: torch.Tensor,
+                   bias: torch.Tensor | None, **kwargs) -> torch.Tensor:
+    """conv(x, weight, bias, **kwargs) in x's dtype. In bfloat16 the bias
+    is added to the conv's rounded output, as the JAX package adds it (y +
+    b.astype(y.dtype)): fused into the conv, the sum would be rounded once
+    where the reference rounds twice, and the two bf16 forwards would part
+    by an ulp in many outputs."""
+    w = weight.to(x.dtype)
+    if bias is None or x.dtype != torch.bfloat16:
+        return conv(x, w, None if bias is None else bias.to(x.dtype),
+                    **kwargs)
+    return conv(x, w, None, **kwargs) + bias.to(x.dtype)[:, None, None]
 
 
 def wrap_pitch_classes(x: torch.Tensor, pitch_classes: int = 12) -> torch.Tensor:
@@ -37,10 +52,8 @@ def equivariant_pc_conv(x: torch.Tensor, weight: torch.Tensor,
     """
     kd = weight.shape[3]
     pad_t = kd // 2 if same_depth_padding else 0
-    return F.conv2d(wrap_pitch_classes(x, weight.shape[2]),
-                    weight.to(x.dtype),
-                    None if bias is None else bias.to(x.dtype),
-                    padding=(0, pad_t))
+    return conv_with_bias(F.conv2d, wrap_pitch_classes(x, weight.shape[2]),
+                          weight, bias, padding=(0, pad_t))
 
 
 def circular_pad(x: torch.Tensor, ph: int, pw: int) -> torch.Tensor:
@@ -61,8 +74,8 @@ def circular_conv2d(x: torch.Tensor, weight: torch.Tensor,
     kh, kw = weight.shape[2], weight.shape[3]
     ph, pw = circular_pad_hw if circular_pad_hw is not None \
         else (kh // 2, kw // 2)
-    return F.conv2d(circular_pad(x, ph, pw), weight.to(x.dtype),
-                    None if bias is None else bias.to(x.dtype), stride=stride)
+    return conv_with_bias(F.conv2d, circular_pad(x, ph, pw), weight, bias,
+                          stride=stride)
 
 
 def semitone_pool_conv(x: torch.Tensor, weight: torch.Tensor,
@@ -78,9 +91,7 @@ def third_upsample(x: torch.Tensor, weight: torch.Tensor,
     """Semitone -> third-of-semitone ConvTranspose2d((3,1), stride (3,1))
     (models.py:325). weight (Cin, Cout, 3, 1): (N, Cin, P, T) ->
     (N, Cout, 3P, T)."""
-    return F.conv_transpose2d(x, weight.to(x.dtype),
-                              None if bias is None else bias.to(x.dtype),
-                              stride=(3, 1))
+    return conv_with_bias(F.conv_transpose2d, x, weight, bias, stride=(3, 1))
 
 
 def pc_to_pitch_tile(x: torch.Tensor, pitches: int) -> torch.Tensor:

@@ -6,6 +6,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from .equivariant import conv_with_bias
+
 
 def octave_max_pool(x: torch.Tensor, pitch_classes: int = 12) -> torch.Tensor:
     """Fold pitches into pitch classes by max over octaves (models.py:95-106).
@@ -37,9 +39,8 @@ def octave_dilated_conv(x: torch.Tensor, weight: torch.Tensor,
     pad = weight.shape[2] * pitch_classes - x.shape[2]
     if pad:
         x = F.pad(x, (0, 0, 0, pad))
-    return F.conv2d(x, weight.to(x.dtype),
-                    None if bias is None else bias.to(x.dtype),
-                    dilation=(pitch_classes, 1))
+    return conv_with_bias(F.conv2d, x, weight, bias,
+                          dilation=(pitch_classes, 1))
 
 
 def time_max_pool(x: torch.Tensor, pool_size: int) -> torch.Tensor:

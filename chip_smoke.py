@@ -148,7 +148,16 @@ non-zero):
              of it, or a loop whose measured
              end to end beats its own producer's ingest rate or whose
              consumer's steps add up to more than its wall;
-  8 result   the card line, the kernels JSON line, and the last line
+  8 converge the hard benchmark's global phase as
+             scripts/train_converge_hard.py runs it (run_phase): 240 + 48
+             polyphonic songs of 60 s rendered by a process pool,
+             imported through kernels A and B (A 7 / B 1 per group), the
+             default widths trained up to 30 epochs after the epoch -1
+             evaluation (kernel C 3 per validation batch, 0 per train
+             step); untrained val MIREX < 0.2, best >= 0.9, the report
+             parsed back to the history; the per-epoch MIREX, render,
+             preprocess and fit walls beside the card line;
+  9 result   the card line, the kernels JSON line, and the last line
              {"ok": true, "device": {...}}.
 Imports only torch, numpy and the port (no JAX).
 """
@@ -196,7 +205,8 @@ from audio_key_estimation_torch.scripts import (experiment_transpose_kernel,
                                                 probe_cqt_kernel_stages,
                                                 probe_dma_rate,
                                                 probe_pallas_overhead,
-                                                probe_pallas_primitives)
+                                                probe_pallas_primitives,
+                                                train_converge_hard)
 from audio_key_estimation_torch.scripts.harness import (card_line,
                                                         graph_ms, time_ms)
 from audio_key_estimation_torch.train import trainer as T
@@ -3526,6 +3536,103 @@ def run_bench() -> dict:
     return rep
 
 
+# ---------------------------------------------------------------------------
+# phase 8: convergence on the hard benchmark's global corpus
+# ---------------------------------------------------------------------------
+
+@contextlib.contextmanager
+def launches_per_call(calls: dict):
+    """Record the kernels' launches per call: each KeyDataset CQT
+    (`calls["cqt"]`, A and B), each train step and each eval step
+    (`calls["train"]`, `calls["eval"]`, A, B and C), by wrapping
+    KeyDataset._features and the trainer's step factories."""
+    features = KeyDataset._features
+    make_train, make_eval = T.make_train_step, T.make_eval_step
+
+    def delta(key, fn, counters):
+        def run(*a, **kw):
+            before = [c.launches for c in counters]
+            out = fn(*a, **kw)
+            calls[key].append([c.launches - b for c, b in
+                               zip(counters, before)])
+            return out
+        return run
+
+    def train_step(*a, **kw):
+        return delta("train", make_train(*a, **kw), COUNTERS)
+
+    def eval_step(cfg):
+        step = delta("eval", make_eval(cfg), COUNTERS)
+        step.cfg = cfg
+        return step
+
+    KeyDataset._features = delta("cqt", features, DATASET_COUNTERS)
+    T.make_train_step, T.make_eval_step = train_step, eval_step
+    try:
+        yield calls
+    finally:
+        KeyDataset._features = features
+        T.make_train_step, T.make_eval_step = make_train, make_eval
+
+
+def run_converge(device) -> dict:
+    """The hard benchmark's global phase as `python -m
+    audio_key_estimation_torch.scripts.train_converge_hard global` runs
+    it (train_converge_hard.run_phase, float32, no option changed): 240
+    training and 48 validation polyphonic songs of 60 s over all 24 keys
+    (disjoint timbres) rendered by a process pool (data/render_pool.py,
+    in an interpreter of its own, so no worker imports this script),
+    imported through
+    kernels A and B (A 7, B 1 per group of 16), the default Config's
+    widths at batch 16 for up to 30 epochs after the epoch -1
+    evaluation, kernel C 3 times per validation batch and never in a
+    train step; the report written into a temporary directory. Fails
+    unless the untrained val MIREX is below 0.2 and the best reaches 0.9
+    (the JAX script's bars) and the report parses back to the history.
+    The pilot (48 + 24 songs of 30 s) is not used: at fit seed 0 its
+    best stays under 0.9 (`train_converge_hard global --pilot --seed S`
+    over seeds, PERF.md)."""
+    calls = {"cqt": [], "train": [], "eval": []}
+    with tempfile.TemporaryDirectory() as td, launches_per_call(calls):
+        r, launches, wall = counted(lambda: train_converge_hard.run_phase(
+            "global", device=device, corpus_root=os.path.join(td, "corpus"),
+            out_dir=os.path.join(td, "out"), dtype="float32",
+            loc_window_size=10))
+        rows = train_converge_hard.parse_report(r["report"])
+    hist, cfg = r["history"], r["cfg"]
+    groups = -(-r["train"] // 16) + -(-r["val"] // 16)
+    val_batches = -(-r["val"] // cfg.batch_size)
+    steps = (len(hist) - 1) * (r["train"] // cfg.batch_size)
+    want = {"cqt": [[cfg.octaves - 1, 1]] * groups,
+            "eval": [[0, 0, 3]] * (val_batches * len(hist)),
+            "train": [[0, 0, 0]] * steps}
+    if (r["train"], r["val"]) != (240, 48) or calls != want:
+        raise AssertionError(f"converge: {r['train']} + {r['val']} songs, "
+                             f"launches per call {calls} (want {want})")
+    if len(rows) != len(hist) or any(
+            row["epoch"] != h["epoch"]
+            or abs(row["val_mirex"] - h["val_mirex"]) > 5e-5
+            or abs(row["val_loss"] - h["val_loss"]) > 5e-5
+            for row, h in zip(rows, hist)):
+        raise AssertionError(f"converge: report {rows} against {hist}")
+    log(f"[8 converge] global ({r['train']} + {r['val']} songs of 60 s, "
+        f"default widths, batch {cfg.batch_size}, {len(hist) - 1} "
+        f"epochs): val MIREX by epoch "
+        + ", ".join(f"{h['epoch']}: {h['val_mirex']:.4f}" for h in hist)
+        + f"; untrained {r['ep0']:.4f} (bar < 0.2), best {r['best']:.4f} "
+        f"(bar >= 0.9); corpus render {r['gen_s']:.1f} s, preprocess "
+        f"{r['prep_s']:.1f} s, fit {r['fit_s']:.1f} s, phase {wall:.1f} s; "
+        f"launches A {launches['cascade_pad']} B "
+        f"{launches['octave_response']} ({groups} import groups, A 7 B 1 "
+        f"each) C {launches['conv7_layer']} ({val_batches} validation "
+        f"batches x {len(hist)} evaluations, 3 each; {steps} train steps, "
+        f"0 each); report parses back ({len(rows)} rows); ({card_line()})")
+    if not (r["ep0"] < 0.2 and r["best"] >= 0.9):
+        raise AssertionError(f"converge: untrained val MIREX {r['ep0']}, "
+                             f"best {r['best']} (bars < 0.2, >= 0.9)")
+    return {"launches": launches, "history": hist, "wall": wall}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: no CUDA device "
@@ -3604,6 +3711,7 @@ def main() -> int:
     del y
     m = drive_probes()
     bench = run_bench()
+    converge = run_converge(device)
 
     src = "audio_key_estimation_torch/csrc/"
     tpu = "audio_key_estimation_tpu/ops/"
@@ -3643,6 +3751,8 @@ def main() -> int:
         # phase 7b: each call of the bench's headline cell
         by_path[k]["bench, a call (kernels float32 B 256)"] = bench[
             "fronts"]["kernels"]["float32"]["b256"]["launches_per_call"][k][0]
+        # phase 8: the global phase's import, train steps and validations
+        by_path[k]["converge"] = converge["launches"][k]
     # the largest |d| of the served batches' own CQT and kernel C stacks
     # against their plain versions, over every served path, shards too
     held = [r["held"] for r in served_by.values()] + [
@@ -3754,7 +3864,7 @@ def main() -> int:
         card = (f", card {k['card_ms']:.4f} ms "
                 f"({k['bound_ms'] / k['card_ms']:.1%})" if "card_ms" in k
                 else "")
-        log(f"[8 result] {k['name']}: {k['ms']:.4f} ms eager, bound "
+        log(f"[9 result] {k['name']}: {k['ms']:.4f} ms eager, bound "
             f"{k['bound_ms']:.4f} ms ({k['bound_by']}, "
             f"{k['bound_ms'] / k['ms']:.1%}){card}, plain "
             f"{k['plain_ms']:.4f} ms, library {k['library_ms']}")

@@ -161,6 +161,54 @@ def test_bench_and_serving_loop_import_no_jax():
     assert not bad, bad
 
 
+def test_convergence_harnesses_import_no_jax():
+    """The port's convergence harnesses (train_converge_hard,
+    train_converge, train_smoke, local_ceiling_analysis) load, in a fresh
+    interpreter, no jax, flax, optax or orbax module, no module of the
+    JAX package and none of the repository's root `scripts/`."""
+    code = textwrap.dedent("""
+        import json, sys
+        from audio_key_estimation_torch.scripts import (
+            local_ceiling_analysis, train_converge, train_converge_hard,
+            train_smoke)
+        print(json.dumps(sorted(sys.modules)))
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    mods = json.loads(res.stdout.strip().splitlines()[-1])
+    assert {f"audio_key_estimation_torch.scripts.{n}" for n in (
+        "local_ceiling_analysis", "train_converge",
+        "train_converge_hard", "train_smoke")} <= set(mods)
+    bad = [m for m in mods if m.split(".")[0] in (
+        "jax", "jaxlib", "flax", "optax", "orbax", "audio_key_estimation_tpu",
+        "scripts", "bench")]
+    assert not bad, bad
+
+
+def test_render_pool_workers_load_no_torch():
+    """data/render_pool.py, the entry module whose spawned workers render
+    the hard benchmark's songs, loads in a fresh interpreter numpy and the
+    synthetic writer and no torch, no JAX and no training harness: each
+    worker re-imports it."""
+    code = textwrap.dedent("""
+        import json, sys
+        import audio_key_estimation_torch.data.render_pool
+        print(json.dumps(sorted(sys.modules)))
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    mods = json.loads(res.stdout.strip().splitlines()[-1])
+    assert {"numpy", "audio_key_estimation_torch.data.synthetic"} <= set(mods)
+    bad = [m for m in mods if m.split(".")[0] in (
+        "torch", "jax", "jaxlib", "flax", "audio_key_estimation_tpu")
+        or m.startswith("audio_key_estimation_torch.scripts")]
+    assert not bad, bad
+
+
 def _imported_modules(path: str) -> set:
     """Every module an import statement of the file names."""
     mods = set()
