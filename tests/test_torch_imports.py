@@ -243,6 +243,48 @@ def test_port_sources_import_no_jax_package(path):
     assert not bad, bad
 
 
+ORACLES = ("audio_key_estimation_torch.ops.cqt_oracle",
+           "audio_key_estimation_torch.ops.librosa_ref")
+
+
+def test_product_modules_never_import_the_oracles():
+    """The CQT oracles (ops/cqt_oracle.py, ops/librosa_ref.py) are
+    test-only: no module of the port but the two names them in an import
+    statement (chip_smoke.py and the tests may), and importing serving,
+    the dataset, the trainer, the CLIs and the bench in a fresh
+    interpreter loads neither."""
+    package = os.path.join(REPO, "audio_key_estimation_torch")
+    sources = [f for f in _port_sources() if f.startswith(package)]
+    assert {os.path.join(REPO, *m.split(".")) + ".py" for m in ORACLES} \
+        <= set(sources)
+    for path in sources:
+        if path.endswith(("cqt_oracle.py", "librosa_ref.py")):
+            continue
+        # `from .ops.cqt_oracle import f` and `from .ops import cqt_oracle`
+        names = {m.rsplit(".", 1)[-1] for m in _imported_modules(path)} | {
+            a.name for node in ast.walk(ast.parse(open(path).read()))
+            if isinstance(node, ast.ImportFrom) for a in node.names}
+        assert not ({"cqt_oracle", "librosa_ref"} & names), path
+    code = textwrap.dedent("""
+        import json, sys
+        from audio_key_estimation_torch import bench, predict
+        from audio_key_estimation_torch.data import dataset
+        from audio_key_estimation_torch.train import trainer
+        from audio_key_estimation_torch.cli import (datasets, equivariance,
+                                                    eval, predict as cli,
+                                                    train)
+        print(json.dumps(sorted(sys.modules)))
+    """)
+    env = dict(os.environ, PYTHONPATH=REPO)
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=300)
+    assert res.returncode == 0, res.stderr
+    mods = set(json.loads(res.stdout.strip().splitlines()[-1]))
+    assert {"audio_key_estimation_torch.predict",
+            "audio_key_estimation_torch.data.dataset"} <= mods
+    assert not mods & set(ORACLES), mods & set(ORACLES)
+
+
 def test_config_fields_and_defaults_equal():
     ours = [(f.name, f.type, f.default) for f in
             dataclasses.fields(port_config.Config)]
