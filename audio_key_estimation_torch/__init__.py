@@ -29,7 +29,8 @@ Layering (bottom -> top), module names mirror the JAX package:
   data/       audio decode and batch ingest, the MP3 decoder, corpus
               loaders, synthetic corpora, KeyDataset, batch prefetch
   utils/      the key-signature map, label builders, metrics logging,
-              throughput meter and torch.profiler trace
+              the tracer (`span`/`spans`/`totals`, `akx.*` spans at the
+              layer boundaries) and `trace(log_dir)`, its Chrome trace
   train/      loss, MIREX metrics, Adam with per-epoch decay,
               checkpoints, the Trainer (data-parallel under torchrun)
   parallel/   the device mesh for sharded serving, the process group

@@ -31,6 +31,7 @@ from ..ops.frontend import compute_cqt, feature_bins, use_cuda_kernels
 from ..parallel.mesh import barrier, data_world
 from ..utils import labels as L
 from ..utils.precision import ieee_float32
+from ..utils.profiling import span
 from . import audio_io
 from .loaders import DatasetLoader
 
@@ -300,17 +301,21 @@ class KeyDataset:
                 valid = np.ones(len(chunk), bool)
             items = [self.items[j] for j in chunk]
             t_max = self._bucket_len(max(it["mel"].shape[-1] for it in items))
-            mel = np.zeros((len(items), self.cfg.pitches, t_max, 1), np.float32)
-            for k, it in enumerate(items):
-                t = it["mel"].shape[-1]
-                mel[k, :, :t, 0] = it["mel"]
-            mel2 = None
-            if self.cfg.multi_scale and "mel2" in items[0]:
-                rows2 = items[0]["mel2"].shape[0]
-                mel2 = np.zeros((len(items), rows2, t_max, 1), np.float32)
+            with span("akx.pad",
+                      frames=sum(int(it["seq_length"]) for it in items),
+                      frames_padded=len(items) * t_max):
+                mel = np.zeros((len(items), self.cfg.pitches, t_max, 1),
+                               np.float32)
                 for k, it in enumerate(items):
-                    t = it["mel2"].shape[-1]
-                    mel2[k, :, :t, 0] = it["mel2"]
+                    t = it["mel"].shape[-1]
+                    mel[k, :, :t, 0] = it["mel"]
+                mel2 = None
+                if self.cfg.multi_scale and "mel2" in items[0]:
+                    rows2 = items[0]["mel2"].shape[0]
+                    mel2 = np.zeros((len(items), rows2, t_max, 1), np.float32)
+                    for k, it in enumerate(items):
+                        t = it["mel2"].shape[-1]
+                        mel2[k, :, :t, 0] = it["mel2"]
             batch = {
                 **({"mel2": mel2} if mel2 is not None else {}),
                 "mel": mel,

@@ -12,6 +12,8 @@ import queue
 import threading
 from typing import Iterable, Iterator
 
+from ..utils.profiling import span
+
 _SENTINEL = object()
 
 
@@ -51,7 +53,8 @@ def prefetch(iterable: Iterable, size: int = 2) -> Iterator:
     t.start()
     try:
         while True:
-            item = q.get()
+            with span("akx.feed_wait"):
+                item = q.get()
             if item is _SENTINEL:
                 break
             yield item

@@ -28,6 +28,7 @@ from torch import nn
 
 from ..config import Config
 from ..ops.frontend import torch_dtype
+from ..utils.profiling import span
 from .pitchclassnet import PitchClassNet
 
 
@@ -77,6 +78,11 @@ class PitchClassNetMulti(nn.Module):
         self.model2.set_dropout_generator(generator)
 
     def forward(self, mel1, mel2, seq_length=None):
+        # one akx.model span: the towers' own open none inside it
+        with span("akx.model"):
+            return self._forward(mel1, mel2, seq_length)
+
+    def _forward(self, mel1, mel2, seq_length):
         out1 = self.model1(mel1, seq_length)
         out2 = self.model2(mel2, seq_length)
         if not self.cfg.linear_reg_multi:

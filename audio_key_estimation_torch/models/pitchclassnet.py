@@ -33,6 +33,7 @@ from ..ops import equivariant as eqv
 from ..ops import pooling
 from ..ops.frontend import torch_dtype
 from ..ops.masked_pool import actual_output_length, masked_time_reduce
+from ..utils.profiling import span
 from .blocks import (LEAKY_SLOPE, BatchNorm, CircularConv, ConvStack,
                      DenseLayer, EquivariantConv, OctaveConvPool,
                      ThirdUpsample, ZeroPadConv, leaky_relu)
@@ -232,6 +233,10 @@ class PitchClassNet(nn.Module):
                 m.generator = generator
 
     def forward(self, mel, seq_length=None):
+        with span("akx.model"):
+            return self._forward(mel, seq_length)
+
+    def _forward(self, mel, seq_length):
         c = self.cfg
         local = c.local
         p = mel.to(torch_dtype(c.dtype)).permute(0, 3, 1, 2)

@@ -41,6 +41,7 @@ from .parallel.mesh import Mesh, replicate, shard_batch
 from .train import checkpoints as ckpt_lib
 from .utils.key_signatures import KEY_SIGNATURE_MAP
 from .utils.precision import ieee_float32
+from .utils.profiling import span
 
 NOTE_NAMES = ['C', 'C#', 'D', 'D#', 'E', 'F', 'F#', 'G', 'G#', 'A', 'A#', 'B']
 # major tonic of circle-of-fifths row i (0 = Cb); theoretical rows 15..20
@@ -190,29 +191,34 @@ class KeyEstimator:
         n_rows = -(-n // self.mesh.size) * self.mesh.size
         # int16 when every waveform is raw PCM16 (half the H2D bytes;
         # normalization runs inside the CQT), else float32
-        batch = audio_io.pack_batch(waveforms, pad_len, n_rows=n_rows)
-        seq = np.ones(n_rows, np.int32)
-        seq[:n] = [1 + len(w) // hop for w in waveforms]
+        with span("akx.pack", samples=sum(len(w) for w in waveforms),
+                  samples_padded=n_rows * pad_len):
+            batch = audio_io.pack_batch(waveforms, pad_len, n_rows=n_rows)
+            seq = np.ones(n_rows, np.int32)
+            seq[:n] = [1 + len(w) // hop for w in waveforms]
         return batch, seq, hop
 
     def make_batch(self, waveforms, sr: int):
         """host_batch's signal batch and seq lengths on the device (the
         mesh's first)."""
         batch, seq, hop = self.host_batch(waveforms, sr)
-        return (torch.from_numpy(batch).to(self.device),
-                torch.from_numpy(seq).to(self.device), hop)
+        with span("akx.h2d", bytes=batch.nbytes + seq.nbytes):
+            return (torch.from_numpy(batch).to(self.device),
+                    torch.from_numpy(seq).to(self.device), hop)
 
     def features(self, batch: torch.Tensor, sr: int, hop: int) -> tuple:
         """(B, L) signal batch -> the model's inputs: (mel,), or (mel1,
         mel2) for the multi-scale ensemble, each a (B, rows, T, 1)
         log1p-CQT, one CQT per `feature_bins` entry."""
         cfg = self.cfg
-        return tuple(
-            compute_cqt(batch, CQTParams(sr=sr, hop=hop, bins_per_octave=bpo,
-                                         octaves=cfg.octaves),
-                        use_kernels=self.use_kernels,
-                        conv_dtype=cfg.cqt_conv_dtype)[..., None]
-            for bpo in feature_bins(cfg))
+        with span("akx.features"):
+            return tuple(
+                compute_cqt(batch, CQTParams(sr=sr, hop=hop,
+                                             bins_per_octave=bpo,
+                                             octaves=cfg.octaves),
+                            use_kernels=self.use_kernels,
+                            conv_dtype=cfg.cqt_conv_dtype)[..., None]
+                for bpo in feature_bins(cfg))
 
     @torch.inference_mode()
     @ieee_float32("KeyEstimator.outputs")
@@ -233,46 +239,53 @@ class KeyEstimator:
                                          shard_batch(batch, self.mesh),
                                          shard_batch(seq, self.mesh))]
         n = len(waveforms)
-        out = [torch.cat([o[k].cpu() for o in shards]).numpy()[:n]
-               for k in range(len(shards[0]))]
-        return out, seq[:n].cpu().numpy()
+        with span("akx.readback"):
+            out = [torch.cat([o[k].cpu() for o in shards]).numpy()[:n]
+                   for k in range(len(shards[0]))]
+            return out, seq[:n].cpu().numpy()
 
+    # Each public predict_* call is one request: one `akx.request` span,
+    # its own root (one directly inside it records nothing more)
     @torch.inference_mode()
     def predict_waveforms(self, waveforms: Sequence[np.ndarray], sr: int,
                           return_raw: bool = False) -> List[Prediction]:
-        out, _ = self.outputs(waveforms, sr)
-        key, tonic = out[0], out[1]
-        genre = out[2] if len(out) > 2 else None
-        preds = []
-        for i in range(len(waveforms)):
-            info = key_name(key[i], tonic[i])
-            preds.append(Prediction(
-                key=info["key"], tonic=info["tonic"],
-                confidence=info["confidence"],
-                genre=(A_GENRES[int(np.argmax(genre[i]))]
-                       if genre is not None else None),
-                key_probs=key[i] if return_raw else None,
-                tonic_logits=tonic[i] if return_raw else None))
-        return preds
+        with span("akx.request", request=True):
+            out, _ = self.outputs(waveforms, sr)
+            key, tonic = out[0], out[1]
+            genre = out[2] if len(out) > 2 else None
+            preds = []
+            with span("akx.name"):
+                for i in range(len(waveforms)):
+                    info = key_name(key[i], tonic[i])
+                    preds.append(Prediction(
+                        key=info["key"], tonic=info["tonic"],
+                        confidence=info["confidence"],
+                        genre=(A_GENRES[int(np.argmax(genre[i]))]
+                               if genre is not None else None),
+                        key_probs=key[i] if return_raw else None,
+                        tonic_logits=tonic[i] if return_raw else None))
+            return preds
 
     def predict_files(self, paths: Sequence[Union[str, os.PathLike]],
                       **kw) -> List[Prediction]:
         return self._predict_files(paths, self.predict_waveforms, **kw)
 
     def _predict_files(self, paths, fn, **kw):
-        # raw: PCM16 stays int16 (the CQT normalizes on the device); MP3
-        # and every other WAV encoding decode to float32
-        decoded = list(audio_io.decode_many((str(p) for p in paths),
-                                            raw=True))
-        by_sr = {}
-        for i, (w, sr) in enumerate(decoded):
-            by_sr.setdefault(sr, []).append((i, w))
-        results: list = [None] * len(decoded)
-        for sr, group in by_sr.items():
-            preds = fn([w for _, w in group], sr, **kw)
-            for (i, _), p in zip(group, preds):
-                results[i] = p
-        return results
+        with span("akx.request", request=True):
+            # raw: PCM16 stays int16 (the CQT normalizes on the device);
+            # MP3 and every other WAV encoding decode to float32
+            with span("akx.decode"):
+                decoded = list(audio_io.decode_many((str(p) for p in paths),
+                                                    raw=True))
+            by_sr = {}
+            for i, (w, sr) in enumerate(decoded):
+                by_sr.setdefault(sr, []).append((i, w))
+            results: list = [None] * len(decoded)
+            for sr, group in by_sr.items():
+                preds = fn([w for _, w in group], sr, **kw)
+                for (i, _), p in zip(group, preds):
+                    results[i] = p
+            return results
 
     # ------------------------------------------------------------------
     # local (per-window) key sequences, the serving face of local mode
@@ -284,29 +297,30 @@ class KeyEstimator:
         """Per-window key estimates: each window spans loc_window_size
         seconds, advancing 1/frames seconds per step (the local head's
         sliding max over frame windows)."""
-        cfg = self.cfg
-        out, seq = self.outputs(waveforms, sr, local=True)
-        key, tonic = out[0], out[1]                  # (N, T', 12)
-        genre = out[2] if len(out) > 2 else None
-        win_s, step_s = cfg.loc_window_size, 1.0 / cfg.frames
-        preds = []
-        for i in range(len(waveforms)):
-            n_windows = min(max(int(seq[i]) - cfg.loc_window_size
-                                * cfg.frames + 1, 0), key.shape[1])
-            windows = []
-            for t in range(n_windows):
-                info = key_name(key[i, t], tonic[i, t])
-                windows.append(WindowPrediction(
-                    start=t * step_s, end=t * step_s + win_s,
-                    key=info["key"], tonic=info["tonic"],
-                    confidence=info["confidence"],
-                    genre=(A_GENRES[int(np.argmax(genre[i, t]))]
-                           if genre is not None else None)))
-            preds.append(LocalPrediction(
-                windows=windows,
-                key_probs=key[i, :n_windows] if return_raw else None,
-                tonic_logits=tonic[i, :n_windows] if return_raw else None))
-        return preds
+        with span("akx.request", request=True):
+            cfg = self.cfg
+            out, seq = self.outputs(waveforms, sr, local=True)
+            key, tonic = out[0], out[1]                  # (N, T', 12)
+            genre = out[2] if len(out) > 2 else None
+            win_s, step_s = cfg.loc_window_size, 1.0 / cfg.frames
+            preds = []
+            for i in range(len(waveforms)):
+                n_windows = min(max(int(seq[i]) - cfg.loc_window_size
+                                    * cfg.frames + 1, 0), key.shape[1])
+                windows = []
+                for t in range(n_windows):
+                    info = key_name(key[i, t], tonic[i, t])
+                    windows.append(WindowPrediction(
+                        start=t * step_s, end=t * step_s + win_s,
+                        key=info["key"], tonic=info["tonic"],
+                        confidence=info["confidence"],
+                        genre=(A_GENRES[int(np.argmax(genre[i, t]))]
+                               if genre is not None else None)))
+                preds.append(LocalPrediction(
+                    windows=windows,
+                    key_probs=key[i, :n_windows] if return_raw else None,
+                    tonic_logits=tonic[i, :n_windows] if return_raw else None))
+            return preds
 
     def predict_files_local(self, paths: Sequence[Union[str, os.PathLike]],
                             **kw) -> List[LocalPrediction]:

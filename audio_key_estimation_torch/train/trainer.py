@@ -53,6 +53,7 @@ from ..models.multi_scale import build_model
 from ..parallel.mesh import (all_reduce_, barrier, check_mesh_shape,
                              data_world, rank_rows)
 from ..utils.precision import ieee_float32
+from ..utils.profiling import span
 from . import checkpoints as ckpt_lib
 from .loss import compute_loss, loss_from_sums, loss_share, loss_sums, \
     loss_totals
@@ -116,8 +117,9 @@ def data_parallel(state: TrainState) -> None:
 
 def to_device(batch: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
     """A batches() dict of numpy arrays as tensors on `device`."""
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
-            for k, v in batch.items()}
+    with span("akx.to_device"):
+        return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+                for k, v in batch.items()}
 
 
 def forward(model: torch.nn.Module, cfg: Config, batch):
@@ -155,6 +157,10 @@ def make_train_step(cfg: Config, steps_per_epoch: int,
 
     @ieee_float32("train_step")
     def train_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        with span("akx.train_step", request=state.step):
+            return update(state, batch)
+
+    def update(state: TrainState, batch) -> Dict[str, torch.Tensor]:
         model, opt, ddp = state.model, state.optimizer, state.ddp
         net = model if ddp is None else ddp
         net.train()
@@ -174,24 +180,30 @@ def make_train_step(cfg: Config, steps_per_epoch: int,
                 model.dropout_generator.manual_seed(
                     dropout_seed(rng_seed, state.step, idx))
             if ddp is None:
-                loss, _ = compute_loss(cfg, forward(model, cfg, micro),
-                                       micro)
-                loss.backward()
+                with span("akx.forward"):
+                    loss, _ = compute_loss(cfg, forward(model, cfg, micro),
+                                           micro)
+                with span("akx.backward"):
+                    loss.backward()
             else:
                 # gradients are all-reduced once, after the last
                 # micro-batch; DDP averages them over the ranks, so each
                 # rank backpropagates world x its share
                 sync = idx == acc - 1
                 with contextlib.nullcontext() if sync else ddp.no_sync():
-                    loss = loss_share(cfg, forward(ddp, cfg, micro), micro,
-                                      totals[idx])
-                    (loss * world).backward()
+                    with span("akx.forward"):
+                        loss = loss_share(cfg, forward(ddp, cfg, micro),
+                                          micro, totals[idx])
+                    with span("akx.backward"):
+                        (loss * world).backward()
             losses.append(loss.detach())
-        grads = [p.grad for p in model.parameters() if p.grad is not None]
-        torch._foreach_div_(grads, acc)
-        set_learning_rate(opt, learning_rate(cfg, state.step,
-                                             steps_per_epoch))
-        opt.step()
+        with span("akx.optimizer"):
+            grads = [p.grad for p in model.parameters()
+                     if p.grad is not None]
+            torch._foreach_div_(grads, acc)
+            set_learning_rate(opt, learning_rate(cfg, state.step,
+                                                 steps_per_epoch))
+            opt.step()
         state.step += 1
         return {"loss": torch.stack(losses).mean()}
 

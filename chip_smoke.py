@@ -126,8 +126,9 @@ non-zero):
              batch's (A 14 / B 2 / C 6; ensemble 28 / 4 / 12), each
              shard's own CQTs and kernel C stacks held against their plain
              versions, keys and tonics within rtol 2e-4 / atol 2e-5 of the
-             unsharded kernel path; ThroughputMeter over one sharded call,
-             trace() of one sharded batch naming the akt operators;
+             unsharded kernel path; a wall clock over one sharded call,
+             trace() of one sharded batch naming the akt operators and
+             its akx.request span;
              Trainer.fit at world 1 on NCCL (file:// store) equal to the
              fit without a group; two spawned ranks on gloo (NCCL refuses
              two ranks on one device): one train step of 8 x 2 songs (4
@@ -232,7 +233,7 @@ from audio_key_estimation_torch.train.metrics import mirex_categories
 from audio_key_estimation_torch.utils.key_signatures import KEY_SIGNATURE_MAP
 from audio_key_estimation_torch.utils import precision
 from audio_key_estimation_torch.utils.precision import ieee_float32
-from audio_key_estimation_torch.utils.profiling import ThroughputMeter, trace
+from audio_key_estimation_torch.utils.profiling import trace
 
 SR = 22050
 CLIP_SECONDS = 120
@@ -3135,9 +3136,9 @@ def serve_sharded(paths, device) -> dict:
     batch's (A 14 / B 2 / C 6; the ensemble 28 / 4 / 12); each shard's own
     CQTs and kernel C stacks held against their plain versions
     (hold_served); keys and tonics against the unsharded kernel path on
-    the same weights (check_sharded). Then ThroughputMeter over one
-    sharded call and trace() of one sharded batch, whose trace must name
-    the akt operators."""
+    the same weights (check_sharded). Then a wall clock over one sharded
+    call and trace() of one sharded batch, whose trace must name the akt
+    operators and the request's akx.request span."""
     mesh = make_mesh(devices=[device] * DP_WORLD)
     res = {}
     for name, kw, counts in (("default", {}, (16, 15)),
@@ -3180,28 +3181,25 @@ def serve_sharded(paths, device) -> dict:
             log(held_text(f"sharded {tag}", held).replace("[4 serve]",
                                                           "[6b dp]"))
         if name == "default":
-            meter = ThroughputMeter()
             torch.cuda.synchronize()
-            meter.start()
+            t0 = time.perf_counter()
             est.predict_files(paths)
             torch.cuda.synchronize()
-            meter.stop(len(paths) * CLIP_SECONDS)
+            rate = len(paths) * CLIP_SECONDS / 60 / (time.perf_counter() - t0)
             with tempfile.TemporaryDirectory() as td:
                 with trace(td):
                     est.predict_files(paths)
                 text = open(os.path.join(td, "trace.json")).read()
-            akt = sorted({n for n in ("akt::cascade_pad",
-                                      "akt::octave_response", "akt::conv7")
-                          if n in text})
-            if len(akt) != 3:
-                raise AssertionError(f"trace names {akt} of the akt "
-                                     "operators")
-            res["meter"] = meter.audio_min_per_sec
-            log(f"[6b dp] ThroughputMeter over one sharded call of "
-                f"{len(paths)} clips: {meter.audio_min_per_sec:.1f} "
-                f"audio-min/s ({meter.per_chip():.1f} per card); trace() of "
-                f"one sharded batch: {len(text)} bytes naming "
-                f"{', '.join(akt)} ({card_line()})")
+            names = ("akt::cascade_pad", "akt::octave_response",
+                     "akt::conv7", '"akx.request"')
+            found = sorted(n for n in names if n in text)
+            if len(found) != len(names):
+                raise AssertionError(f"trace names {found} of {names}")
+            res["audio_min_per_s"] = rate
+            log(f"[6b dp] one sharded call of {len(paths)} clips: "
+                f"{rate:.1f} audio-min/s ({rate / mesh.size:.1f} per "
+                f"replica); trace() of one sharded batch: {len(text)} bytes "
+                f"naming {', '.join(found)} ({card_line()})")
         del est, unsharded
         torch.cuda.empty_cache()
     return res
@@ -4072,7 +4070,7 @@ def main() -> int:
         # phase 6b: sharded serving (two replicas), the world-1 fit and
         # each world-2 rank's sharded evaluate
         by_path[k] |= {f"sharded {tag}": r["launches"][k]
-                       for tag, r in dp["serve"].items() if tag != "meter"}
+                       for tag, r in dp["serve"].items() if tag != "audio_min_per_s"}
         by_path[k] |= {"dp world-1 fit": dp["fit1"]["launches"][k],
                        "dp world-2 evaluate, each rank":
                            dp["world2"]["eval_launches"][k]}
@@ -4094,7 +4092,7 @@ def main() -> int:
     # the largest |d| of the served batches' own CQT and kernel C stacks
     # against their plain versions, over every served path, shards too
     held = [r["held"] for r in served_by.values()] + [
-        r["held"] for tag, r in dp["serve"].items() if tag != "meter"]
+        r["held"] for tag, r in dp["serve"].items() if tag != "audio_min_per_s"]
     served_cqt_d = max(h["cqt_d"] for h in held)
     served_c_d = max(h["c_d"] for h in held)
     st, sm, tp = probe["stages"], probe["small"], probe["transpose"]

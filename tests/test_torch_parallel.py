@@ -10,8 +10,7 @@ group's guards, and utils/profiling.py.
    cannot follow (a world that does not divide the micro-batch, a
    mesh_shape the group does not have, nccl or CUDA without CUDA, a
    rendezvous that never completes);
- * ThroughputMeter as tests/test_utils.py:42-47, and trace() writes a
-   Chrome trace naming the operators it saw.
+ * trace() writes a Chrome trace naming the operators it saw.
 """
 
 import json
@@ -29,7 +28,7 @@ from audio_key_estimation_tpu.parallel import mesh as jax_mesh
 from audio_key_estimation_torch.models import build_model
 from audio_key_estimation_torch.config import Config
 from audio_key_estimation_torch.parallel import mesh
-from audio_key_estimation_torch.utils.profiling import ThroughputMeter, trace
+from audio_key_estimation_torch.utils.profiling import trace
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU8 = [torch.device("cpu")] * 8
@@ -151,18 +150,6 @@ def test_failed_rendezvous_raises_within_its_limit(tmp_path):
     line = [ln for ln in res.stdout.splitlines() if ln.startswith("raised")]
     assert line, res.stdout + res.stderr
     assert 3 <= float(line[0].split()[1]) < 60
-
-
-def test_throughput_meter():
-    """tests/test_utils.py:42-47; per_chip() with no process group
-    divides by the visible CUDA devices (at least 1)."""
-    m = ThroughputMeter()
-    m.start()
-    m.stop(audio_seconds=60.0)
-    assert m.audio_min_per_sec > 0
-    assert m.per_chip(2) == m.audio_min_per_sec / 2
-    assert m.per_chip() == m.audio_min_per_sec / max(
-        torch.cuda.device_count(), 1)
 
 
 def test_trace_writes_a_chrome_trace(tmp_path):
