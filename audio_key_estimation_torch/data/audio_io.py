@@ -319,16 +319,38 @@ def decode_many(paths, workers: int = 8, raw: bool = False):
             lib.akx_pool_destroy(pool)
 
 
-def pack_batch(waves, pad_len: int, n_rows: int | None = None) -> np.ndarray:
+# pack_batch(out=) splits each row into pieces of this many samples, so a
+# pool's threads share the copies and zero fills of uneven rows evenly
+PACK_PIECE = 1 << 21
+
+
+def batch_dtype(waves) -> np.dtype:
+    """The dtype pack_batch gives these waveforms: int16 when every one
+    is raw PCM16, else float32."""
+    return np.dtype(np.int16 if all(w.dtype == np.int16 for w in waves)
+                    else np.float32)
+
+
+def pack_batch(waves, pad_len: int, n_rows: int | None = None,
+               out: np.ndarray | None = None, pool=None) -> np.ndarray:
     """Zero-padded (n_rows, pad_len) signal batch for the device front-end.
 
     Stays int16 when every waveform is raw PCM16 (half the H2D bytes; the
     CQT normalizes on device), otherwise normalized float32 with any
     int16 members converted host-side.
+
+    Pass ``out`` ((n_rows, pad_len), C-contiguous, of that dtype) to pack
+    in place into a reused buffer: each row gets its samples and zeros
+    after them, and the rows past the waveforms are zeroed, so nothing of
+    what the buffer held before is left. Those copies and fills run on
+    ``pool`` (an Executor) where given, in pieces of PACK_PIECE samples.
     """
     waves = list(waves)
     n = n_rows if n_rows is not None else len(waves)
-    if all(w.dtype == np.int16 for w in waves):
+    dtype = batch_dtype(waves)
+    if out is not None:
+        return _pack_into(_batch_out(out, n, pad_len, dtype), waves, pool)
+    if dtype == np.int16:
         batch = np.zeros((n, pad_len), np.int16)
         for i, w in enumerate(waves):
             batch[i, :len(w)] = w
@@ -342,13 +364,50 @@ def pack_batch(waves, pad_len: int, n_rows: int | None = None) -> np.ndarray:
     return batch
 
 
-def _int16_batch(out, n: int, pad_len: int) -> np.ndarray:
-    """`out` checked as a reusable (n, pad_len) int16 batch, or a new one."""
+def _pack_into(batch: np.ndarray, waves: list, pool) -> np.ndarray:
+    """pack_batch's in-place fill: per row, samples then zeros, piece by
+    piece (numpy releases the GIL in both, so a pool's threads overlap)."""
+    n, pad_len = batch.shape
+    if len(waves) > n or any(len(w) > pad_len for w in waves):
+        raise ValueError(f"{len(waves)} waveforms of up to "
+                         f"{max(map(len, waves), default=0)} samples do not "
+                         f"fit a {(n, pad_len)} batch")
+    scale = batch.dtype == np.float32
+
+    def fill(piece) -> None:
+        i, a, b = piece
+        row = batch[i]
+        m = len(waves[i]) if i < len(waves) else 0
+        if a < m:
+            w, e = waves[i], min(b, m)
+            if scale and w.dtype == np.int16:
+                np.divide(w[a:e], np.float32(32768.0), out=row[a:e],
+                          dtype=np.float32)
+            else:
+                row[a:e] = w[a:e]
+        if max(a, m) < b:
+            row[max(a, m):b] = 0
+
+    pieces = [(i, a, min(a + PACK_PIECE, pad_len))
+              for i in range(n) for a in range(0, pad_len, PACK_PIECE)]
+    if pool is None:
+        for piece in pieces:
+            fill(piece)
+    else:
+        for _ in pool.map(fill, pieces):   # raises what a piece raised
+            pass
+    return batch
+
+
+def _batch_out(out, n: int, pad_len: int, dtype=np.int16) -> np.ndarray:
+    """`out` checked as a reusable (n, pad_len) batch of `dtype`, or a new
+    one."""
+    dtype = np.dtype(dtype)
     if out is None:
-        return np.empty((n, pad_len), np.int16)
-    if (out.shape != (n, pad_len) or out.dtype != np.int16
+        return np.empty((n, pad_len), dtype)
+    if (out.shape != (n, pad_len) or out.dtype != dtype
             or not out.flags.c_contiguous):
-        raise ValueError(f"out must be C-contiguous int16 {(n, pad_len)}, "
+        raise ValueError(f"out must be C-contiguous {dtype} {(n, pad_len)}, "
                          f"got {out.dtype} {out.shape}")
     return out
 
@@ -358,7 +417,7 @@ def _ingest_native(paths, pad_len: int, workers: int, n: int, out):
     PCM16 data chunk into its batch row, zero-filling the tails and the
     unused rows. (batch, lengths, rates), or None unless every file
     ingested clean."""
-    batch = _int16_batch(out, n, pad_len)
+    batch = _batch_out(out, n, pad_len)
     arr = (ctypes.c_char_p * len(paths))(*[os.fsencode(p) for p in paths])
     lengths = np.empty(len(paths), np.int64)
     rates = np.empty(len(paths), np.int32)
@@ -431,7 +490,7 @@ def ingest_batch(paths, pad_len: int, workers: int = 8,
         rates = [sr for _, sr in decoded]
         return batch, lengths, rates
 
-    batch = _int16_batch(out, n, pad_len)
+    batch = _batch_out(out, n, pad_len)
     for i in range(len(paths), n):
         batch[i] = 0                    # unused padding rows stay zero
     lengths = np.array([min(lay[5] // 2, pad_len) for lay in layouts],

@@ -23,7 +23,10 @@ relative-minor reading of that signature.
 
 from __future__ import annotations
 
+import concurrent.futures as futures
 import os
+import threading
+from contextlib import nullcontext
 from dataclasses import dataclass
 from typing import List, Mapping, Optional, Sequence, Union
 
@@ -47,6 +50,12 @@ NOTE_NAMES = ['C', 'C#', 'D', 'D#', 'E', 'F', 'F#', 'G', 'G#', 'A', 'A#', 'B']
 # major tonic of circle-of-fifths row i (0 = Cb); theoretical rows 15..20
 # map to their enharmonic base signatures (utils/key_signatures.py)
 _ROW_MAJOR_TONIC = [(11 + 7 * i) % 12 for i in range(15)] + [2, 4, 9, 3, 8, 10]
+# A batch larger than this goes to the card by the pageable path, so that
+# the page-locked staging buffer never grows past it (a 12-song album in
+# the 420 s bucket is 222 MB of int16; a 256-file library request 4.7 GB)
+STAGING_CAP_BYTES = 1 << 30
+# the most threads that pack a staged batch's rows
+PACK_THREADS = 8
 
 
 def key_name(key_sigmoid: np.ndarray, tonic_logits: np.ndarray) -> dict:
@@ -95,6 +104,52 @@ class LocalPrediction:
     windows: list
     key_probs: Optional[np.ndarray] = None   # (T', 12) per-window sigmoids
     tonic_logits: Optional[np.ndarray] = None
+
+
+class _PinnedStaging:
+    """A CUDA estimator's page-locked host buffer: each batch and its seq
+    lengths are packed into it in place (on `pool`) and copied to the card
+    from it without blocking the host. It grows to the largest batch up
+    to STAGING_CAP_BYTES and is reused; `lock` keeps one batch in it at
+    a time, and `take` waits for the last copy out of it to end before
+    the buffer is written again."""
+
+    def __init__(self):
+        self.lock = threading.Lock()
+        self.pool = futures.ThreadPoolExecutor(
+            max_workers=min(PACK_THREADS, os.cpu_count() or 1),
+            thread_name_prefix="akx-pack")
+        self._host = None          # the page-locked uint8 tensor
+        self._copied = None        # event after the last copy out of it
+
+    def take(self, n_rows: int, pad_len: int, dtype):
+        """(batch, seq): views of the buffer as an (n_rows, pad_len) batch
+        of `dtype` and an (n_rows,) int32 array, or None for a batch over
+        the cap."""
+        batch_bytes = n_rows * pad_len * np.dtype(dtype).itemsize
+        seq_at = -(-batch_bytes // 64) * 64
+        nbytes = seq_at + 4 * n_rows
+        if nbytes > STAGING_CAP_BYTES:
+            return None
+        if self._copied is not None:
+            self._copied.synchronize()
+        if self._host is None or self._host.numel() < nbytes:
+            self._host = None          # freed before the larger one
+            self._host = torch.empty(nbytes, dtype=torch.uint8,
+                                     pin_memory=True)
+        host = self._host.numpy()
+        return (host[:batch_bytes].view(dtype).reshape(n_rows, pad_len),
+                host[seq_at:nbytes].view(np.int32))
+
+    def holds(self, a: np.ndarray) -> bool:
+        return (self._host is not None
+                and np.may_share_memory(a, self._host.numpy()))
+
+    def copied(self, device: torch.device) -> None:
+        """Mark the copies just queued on `device`'s current stream as the
+        last out of the buffer."""
+        self._copied = torch.cuda.Event()
+        self._copied.record(torch.cuda.current_stream(device))
 
 
 class KeyEstimator:
@@ -155,6 +210,10 @@ class KeyEstimator:
         self.model, self.local_model = self.replicas[0], \
             self.local_replicas[0]
         self.bucket_seconds = bucket_seconds
+        # off CUDA a copy to the device would hand back the staging buffer
+        # itself, and callers keep the batches they get
+        self._staging = (_PinnedStaging() if self.device.type == "cuda"
+                         else None)
 
     # ------------------------------------------------------------------
     @classmethod
@@ -179,10 +238,12 @@ class KeyEstimator:
                 return b
         return float(np.ceil(seconds / 60.0) * 60)
 
-    def host_batch(self, waveforms, sr: int):
+    def host_batch(self, waveforms, sr: int,
+                   stage: Optional[_PinnedStaging] = None):
         """Bucket-padded signal batch + true seq lengths on the host,
         padded by zero rows of seq_length 1 to a multiple of the mesh
-        size."""
+        size: packed in place into `stage`'s buffer where it takes the
+        batch, else into fresh arrays."""
         cfg = self.cfg
         longest = max(len(w) for w in waveforms)
         hop = reference_hop(sr, cfg.frames, cfg.window_size, longest)
@@ -193,18 +254,40 @@ class KeyEstimator:
         # normalization runs inside the CQT), else float32
         with span("akx.pack", samples=sum(len(w) for w in waveforms),
                   samples_padded=n_rows * pad_len):
-            batch = audio_io.pack_batch(waveforms, pad_len, n_rows=n_rows)
-            seq = np.ones(n_rows, np.int32)
+            out = None if stage is None else stage.take(
+                n_rows, pad_len, audio_io.batch_dtype(waveforms))
+            if out is None:
+                batch = audio_io.pack_batch(waveforms, pad_len, n_rows=n_rows)
+                seq = np.empty(n_rows, np.int32)
+            else:
+                batch = audio_io.pack_batch(waveforms, pad_len, n_rows=n_rows,
+                                            out=out[0], pool=stage.pool)
+                seq = out[1]
+            seq[:] = 1
             seq[:n] = [1 + len(w) // hop for w in waveforms]
         return batch, seq, hop
 
     def make_batch(self, waveforms, sr: int):
         """host_batch's signal batch and seq lengths on the device (the
-        mesh's first)."""
-        batch, seq, hop = self.host_batch(waveforms, sr)
-        with span("akx.h2d", bytes=batch.nbytes + seq.nbytes):
-            return (torch.from_numpy(batch).to(self.device),
-                    torch.from_numpy(seq).to(self.device), hop)
+        mesh's first). On CUDA both are packed into the page-locked
+        staging buffer and copied without blocking, so the host goes
+        straight on to launch the CQT behind the copy on the same stream;
+        a batch over STAGING_CAP_BYTES, and every batch off CUDA, is
+        packed into fresh arrays and copied as they are."""
+        stage = self._staging
+        with nullcontext() if stage is None else stage.lock:
+            batch, seq, hop = self.host_batch(waveforms, sr, stage)
+            pinned = stage is not None and stage.holds(batch)
+            nbytes = batch.nbytes + seq.nbytes
+            with span("akx.h2d", bytes=nbytes,
+                      pinned_bytes=nbytes if pinned else 0):
+                out = (torch.from_numpy(batch).to(self.device,
+                                                  non_blocking=pinned),
+                       torch.from_numpy(seq).to(self.device,
+                                                non_blocking=pinned), hop)
+                if pinned:
+                    stage.copied(self.device)
+            return out
 
     def features(self, batch: torch.Tensor, sr: int, hop: int) -> tuple:
         """(B, L) signal batch -> the model's inputs: (mel,), or (mel1,

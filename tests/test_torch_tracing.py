@@ -174,7 +174,8 @@ def test_predict_files_is_one_request_over_its_stages(tmp_path):
     assert all(s.counts == {} for s in found
                if s.name not in ("akx.pack", "akx.h2d"))
     h2d = next(s for s in found if s.name == "akx.h2d")
-    assert h2d.counts == {"bytes": 3 * 4 * SR * 2 + 3 * 4}
+    # the CPU takes the fresh, pageable path: nothing page-locked
+    assert h2d.counts == {"bytes": 3 * 4 * SR * 2 + 3 * 4, "pinned_bytes": 0}
 
 
 def test_the_ensemble_is_one_model_span():
