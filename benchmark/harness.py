@@ -5,6 +5,8 @@ given as `root` (the benchmark's own folder in it):
   BENCHMARK.json               the cell (its configuration and traffic),
                                the metrics and which cells report them;
   configs/<config>.json        the configuration as it is run;
+  reference/<reference>.py     the plain reference model the
+                               configuration names (reference.of);
   mixes/<traffic>.json         the traffic mix: its kind and parameters;
   traffic/<kind>.py            the generator and window driver of a kind;
   metrics/<metric>.py          the reader of one per-layer metric;
@@ -27,8 +29,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from . import reference
 from .reference import cqt as ref_cqt
-from .reference import model as ref_model
 from .reference import serve as ref_serve
 from .traffic import synth
 
@@ -53,7 +55,7 @@ class Context:
     root: Path                 # the checkout: BENCHMARK.json and benchmark/
     bench: dict                # BENCHMARK.json
     cell: dict                 # its entry in "workloads"
-    config: dict               # configs/<config>.json
+    config: dict               # configs/<config>.json (names its reference)
     mix: dict                  # mixes/<traffic>.json
     limits: dict               # limits/<cell>.json
     seed: int
@@ -64,6 +66,7 @@ class Context:
     def model(self) -> dict:
         """The configuration as the reference reads it."""
         m = dict(self.config["model"])
+        m["reference"] = self.config["reference"]
         m["bins_per_octave"] = 12 if m.get("only_semitones") else 36
         m["cqt_stream_dtype"] = self.config["precision"]["cqt_streams"]
         m["stack_dtype"] = self.config["precision"]["p2p_stacks"]
@@ -94,6 +97,10 @@ def context(root, workload: str, seed: int, device,
     if cell["config"] not in configs:
         raise CellError(f"{workload}: unknown config {cell['config']!r}")
     config = load_json(root / configs[cell["config"]]["file"])
+    try:
+        reference.of(config)
+    except LookupError as e:
+        raise CellError(f"config {cell['config']!r}: {e}") from None
     home = root / HERE.name
     mix = load_json(home / "mixes" / f"{cell['traffic']}.json")
     limits = load_json(home / "limits" / f"{workload}.json")
@@ -138,7 +145,8 @@ def weights(ctx: Context) -> dict:
     layout; BatchNorm statistics measured by the reference on seeded
     calibration clips, each tower on its own CQT."""
     m = ctx.model
-    sd = ref_model.init_weights(m, ctx.sub_seed(1), ctx.device)
+    ref = reference.of(m)
+    sd = ref.init_weights(m, ctx.sub_seed(1), ctx.device)
     sr = ctx.mix["sr"]
     n = CALIBRATION_SECONDS * sr
     clips = synth.pcm16_batch([n] * CALIBRATION_CLIPS, n, sr,
@@ -151,7 +159,7 @@ def weights(ctx: Context) -> dict:
     seq = torch.full((CALIBRATION_CLIPS,), 1 + n // hop, dtype=torch.int32,
                      device=ctx.device)
     with torch.no_grad():
-        ref_model.forward(sd, m, mels, seq, mode="calibrate")
+        ref.forward(sd, m, mels, seq, mode="calibrate")
     return sd
 
 

@@ -1,7 +1,8 @@
 """Packing: milliseconds of the program's `akx.pack` spans
-(`KeyEstimator.host_batch`: `audio_io.pack_batch` into a fresh
-bucket-padded array) a useful audio-minute, over the profiled slice's
-requests. No synchronize: packing is host work."""
+(`KeyEstimator.host_batch`: `audio_io.pack_batch` into the bucket-padded
+rows of the estimator's page-locked buffer on CUDA, into a fresh array
+elsewhere) a useful audio-minute, over the profiled slice's requests. No
+synchronize: packing is host work."""
 
 from benchmark import program
 

@@ -28,6 +28,7 @@ class Readings:
     window_clips: dict        # {samples (frames, training): clips completed}
     spans: dict               # host seconds over the window, by layer
     training: bool = False
+    latencies_s: tuple = ()   # every request's latency in the window
 
     @property
     def busy_s(self) -> float:

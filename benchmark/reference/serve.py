@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from . import cqt as ref_cqt
-from . import model as ref_model
+from . import of
 
 BUCKET_SECONDS = (60, 180, 420)
 NOTE_NAMES = ['C', 'C#', 'D', 'D#', 'E', 'F', 'F#', 'G', 'G#', 'A', 'A#', 'B']
@@ -107,8 +107,8 @@ def features(batch: torch.Tensor, sr: int, hop: int, cfg: dict) -> list:
 def model_outputs(sd: dict, cfg: dict, feats: list, seq: torch.Tensor,
                   rows: int = 32) -> tuple:
     """(key, tonic) of a batch's features, `rows` rows at a time."""
-    outs = [ref_model.forward(sd, cfg, [f[i:i + rows] for f in feats],
-                              seq[i:i + rows])
+    forward = of(cfg).forward
+    outs = [forward(sd, cfg, [f[i:i + rows] for f in feats], seq[i:i + rows])
             for i in range(0, seq.shape[0], rows)]
     return tuple(torch.cat([o[k] for o in outs]) for k in range(2))
 

@@ -19,7 +19,7 @@ import math
 
 import torch
 
-from . import model as ref_model
+from . import of
 
 BETAS = (0.9, 0.999)
 ADAM_EPS = 1e-8
@@ -38,8 +38,8 @@ def micro_loss(sd: dict, cfg: dict, micro: dict, half: bool = False):
     n = micro["mel"].shape[0]
     rows = slice(0, max(n // 2, 1)) if half else slice(0, n)
     mel = micro["mel"][rows, ..., 0]
-    key, tonic = ref_model.forward(sd, cfg, [mel], micro["seq_length"][rows],
-                                   mode="train")
+    key, tonic = of(cfg).forward(sd, cfg, [mel], micro["seq_length"][rows],
+                                 mode="train")
     y = micro["key_labels"][rows].to(key.dtype)
     p = torch.clamp(key, CLAMP, 1 - CLAMP)
     bce = -(y * torch.log(p) + (1 - y) * torch.log(1 - p)).mean(-1)

@@ -8,6 +8,8 @@ import subprocess
 import sys
 from pathlib import Path
 
+import pytest
+
 BENCH = Path(__file__).resolve().parents[1]
 NEVER = {"jax", "jaxlib", "flax", "audio_key_estimation_tpu"}
 PORT = "audio_key_estimation_torch"
@@ -54,11 +56,18 @@ def test_the_reference_imports_nothing_of_the_system():
                 assert node.level == 1, (p, node.module)
 
 
-def test_loading_the_reference_loads_neither():
-    code = ("import sys, benchmark.reference.serve, benchmark.reference.model,"
-            " benchmark.reference.cqt; tops = {m.split('.')[0] for m in "
-            "sys.modules}; print(sorted(tops & {'jax', 'jaxlib', 'flax', "
-            "'audio_key_estimation_tpu', 'audio_key_estimation_torch'}))")
+# every module under reference/, a configuration's own model among them
+REFERENCE = ["benchmark.reference" + ("" if p.stem == "__init__"
+                                      else f".{p.stem}")
+             for p in sources(BENCH / "reference")]
+
+
+@pytest.mark.parametrize("module", REFERENCE)
+def test_loading_the_reference_loads_neither(module):
+    code = (f"import sys, {module}; tops = "
+            "{m.split('.')[0] for m in sys.modules}; print(sorted(tops & "
+            "{'jax', 'jaxlib', 'flax', 'audio_key_estimation_tpu', "
+            "'audio_key_estimation_torch'}))")
     out = subprocess.run([sys.executable, "-c", code], cwd=BENCH.parent,
                          capture_output=True, text=True, check=True)
     assert out.stdout.strip() == "[]"

@@ -20,7 +20,8 @@ def cfg_of(multi: bool, stacks: str = "bfloat16") -> dict:
             "multi_scale": multi, "conv_layers": 3, "n_filters": 4,
             "num_layers": 2, "kernel_size": 7, "head_layers": 2,
             "time_pool_size": 2, "bins_per_octave": 36,
-            "cqt_stream_dtype": "bfloat16", "stack_dtype": stacks}
+            "cqt_stream_dtype": "bfloat16", "stack_dtype": stacks,
+            "reference": "model"}
 
 
 def port_config(multi: bool, fused: bool = True):

@@ -94,7 +94,7 @@ def config(name: str) -> dict:
     c = json.loads((HERE / "configs" / f"{name}.json").read_text())
     m = dict(c["model"])
     m.update(bins_per_octave=36, cqt_stream_dtype="bfloat16",
-             stack_dtype="bfloat16")
+             stack_dtype="bfloat16", reference=c["reference"])
     return m
 
 

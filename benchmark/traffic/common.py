@@ -6,8 +6,7 @@ from __future__ import annotations
 
 import torch
 
-from .. import stand_in
-from ..reference import model as ref_model
+from .. import reference, stand_in
 from ..reference import serve as ref_serve
 
 STACK_OUT = 8           # kernel C's stacks: 8 outputs, <= 8 inputs, 7x7
@@ -32,19 +31,22 @@ def geometry(model: dict, runtime: dict, *, B: int, L: int, sr: int,
              hop: int, input_itemsize: int) -> dict:
     """One call's CQTs (kernels A and B) and kernel C's stacks at a padded
     (B, L) batch: each tower's Pitch2Pitch stacks that kernel C takes
-    (plain, 7x7, 8 outputs, <= 8 inputs, fused serving on)."""
+    (plain, meaning neither residual nor dense blocks, as the system's
+    `ConvStack.fusable` decides; 7x7, 8 outputs, <= 8 inputs, fused
+    serving on), with the widths of the configuration's reference."""
     stream = 2 if model["cqt_stream_dtype"] == "bfloat16" else 4
     cqts = [{"B": B, "L": L, "sr": sr, "hop": hop, "bins_per_octave": b,
              "octaves": model["octaves"], "input_itemsize": input_itemsize,
              "stream_itemsize": stream} for b in ref_serve.bins_of(model)]
     stacks = []
     T = 1 + L // hop
-    for b in (ref_serve.bins_of(model) if runtime.get("fused_convstack")
-              else ()):
+    plain = not (model.get("resblock") or model.get("denseblock"))
+    fused = runtime.get("fused_convstack") and plain
+    channels = reference.of(model).layer_channels
+    for b in (ref_serve.bins_of(model) if fused else ()):
         t = T
         for layer in range(1, model["num_layers"]):
-            prev_p, prev_pc, out_p, _ = ref_model.layer_channels(
-                layer, model["n_filters"])
+            prev_p, prev_pc, out_p, _ = channels(layer, model["n_filters"])
             cin = prev_p + prev_pc
             if (out_p == STACK_OUT and cin <= STACK_OUT
                     and model["kernel_size"] == STACK_KERNEL):

@@ -5,9 +5,10 @@ padding counts as waste and not as work.
 `frontend_flops` is a frozen copy of the port bench's analytic count of
 the CQT (`audio_key_estimation_torch/bench.py::frontend_flops`). The
 model's operations are those `torch.utils.flop_counter.FlopCounterMode`
-counts over the benchmark's reference model (`reference/model.py`) run
-on one clip of that length, on the meta device (no arithmetic is done);
-each distinct length is counted once.
+counts over the reference model the configuration names
+(`reference/<reference>.py`, found by `reference.of`) run on one clip of
+that length, on the meta device (no arithmetic is done); each distinct
+configuration and length is counted once.
 """
 
 from __future__ import annotations
@@ -18,7 +19,7 @@ import json
 import torch
 from torch.utils.flop_counter import FlopCounterMode
 
-from ..reference import model as ref_model
+from .. import reference
 from ..reference import serve as ref_serve
 from .roofline import HALFBAND_TAPS, n_fft, stream_lengths
 
@@ -39,14 +40,15 @@ def frontend_flops(*, sr: int, hop: int, bins_per_octave: int, octaves: int,
 @functools.lru_cache(maxsize=4096)
 def _model_flops(cfg_json: str, frames: int, backward: bool) -> int:
     cfg = json.loads(cfg_json)
+    ref = reference.of(cfg)
     weights = {k: torch.empty(s, device="meta", requires_grad=backward)
-               for k, s, _, _ in ref_model.spec(cfg)}
+               for k, s, _, _ in ref.spec(cfg)}
     rows = [cfg["octaves"] * bpo for bpo in ref_serve.bins_of(cfg)]
     mels = [torch.empty(1, r, frames, device="meta") for r in rows]
     seq = torch.full((1,), frames, dtype=torch.int32, device="meta")
     counter = FlopCounterMode(display=False)
     with counter:
-        key, tonic = ref_model.forward(
+        key, tonic = ref.forward(
             weights, cfg, mels, seq, mode="train" if backward else "eval")
         if backward:
             (key.sum() + tonic.sum()).backward()
