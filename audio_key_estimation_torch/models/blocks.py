@@ -27,6 +27,7 @@ from ..ops import equivariant as eqv
 from ..ops import pooling
 from ..ops.convstack_cuda import LEAKY_SLOPE
 from ..parallel.mesh import all_reduce_
+from ..utils.profiling import span
 
 
 def _uniform(shape, bound: float, generator: torch.Generator) -> torch.Tensor:
@@ -334,6 +335,10 @@ class ConvStack(nn.Module):
     fused_serving, an eval-mode plain Pitch2Pitch stack at kernel C's
     geometry runs through ops/convstack_cuda.py (the JAX package's
     `_use_fused` gate, without its TPU lane constraints).
+
+    Each forward is one `akx.stack` span, fused or not, whose record
+    carries `convs` (the convolutions the stack runs: conv_layers plain,
+    a stem and two a block residual, two a layer dense) and `res_blocks`.
     """
 
     def __init__(self, in_ch, out_ch, kernel_size, conv_layers, equivariant,
@@ -371,6 +376,10 @@ class ConvStack(nn.Module):
         self.equivariant = equivariant
         self.plain = not (resblock or denseblock)
         self.fused_serving = fused_serving
+        self.span_counts = {
+            "convs": (1 + 2 * conv_layers if resblock else
+                      2 * conv_layers if denseblock else conv_layers),
+            "res_blocks": conv_layers if resblock else 0}
 
     @property
     def fusable(self) -> bool:
@@ -396,11 +405,12 @@ class ConvStack(nn.Module):
                 for c, b in zip(convs, bns)]
 
     def forward(self, x):
-        if self.use_fused(x):
-            return CS.fused_convstack(x, self.folded_layers())
-        for m in self.layer:
-            x = m(x)
-        return x
+        with span("akx.stack", tally=False, **self.span_counts):
+            if self.use_fused(x):
+                return CS.fused_convstack(x, self.folded_layers())
+            for m in self.layer:
+                x = m(x)
+            return x
 
 
 class OctaveConvPool(nn.Module):

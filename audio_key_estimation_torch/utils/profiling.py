@@ -1,13 +1,16 @@
 """The port's tracer: spans at its layer boundaries, counters of the work
 done there, and `trace(log_dir)`, the operator's Chrome-trace exporter.
 
-`span(name, request=None, **counts)` is a context manager:
+`span(name, request=None, tally=True, **counts)` is a context manager:
 
   * `counts` (work known before it starts: samples, bytes, frames) are
     added to process-wide totals on every call, traced or not;
     `totals()` returns them, so useful-against-padded shares can be read
     without a profiler. Only the spans whose counts a metric reads take
-    any (PERF.md §3).
+    any (PERF.md §3). With `tally` False the counts go on the span's
+    record alone (a ConvStack's convs and blocks, which describe the
+    work rather than add to a total), and off the profiler the span
+    stays one flag check.
   * While a torch.profiler session is active (the profiler's own enabled
     flag; nothing else turns tracing on), the span is recorded, with
     its name, start and end (`time.perf_counter_ns`), the enclosing span
@@ -80,10 +83,10 @@ def spans() -> list:
     return list(_session)
 
 
-def span(name: str, request=None, **counts):
+def span(name: str, request=None, tally: bool = True, **counts):
     """A context manager around one layer's work; see the module's
     docstring."""
-    if counts:
+    if counts and tally:
         _add(name, counts)
     if not _autograd_profiler._is_profiler_enabled:
         return _OFF

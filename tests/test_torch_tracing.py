@@ -12,6 +12,10 @@ serving and training stages.
  * predict_files is one akx.request whose children are the stages, and
    akx.pack counts the files' samples and rows x the bucket; the
    ensemble's forward is one akx.model;
+ * every ConvStack forward is one akx.stack under akx.model (plain,
+   residual, dense, and kernel C's fused stack alike), its record
+   carrying the convs it runs and its residual blocks, none of which
+   reaches totals();
  * a train_step fed through prefetch: akx.feed_wait, acc_grad akx.forward
    and akx.backward and one akx.optimizer under one akx.train_step, the
    frames totals of every padded batch, and the producer thread's spans
@@ -31,6 +35,8 @@ from audio_key_estimation_torch.data import audio_io
 from audio_key_estimation_torch.data.dataset import KeyDataset
 from audio_key_estimation_torch.data.pipeline import prefetch
 from audio_key_estimation_torch.models import build_model
+from audio_key_estimation_torch.models.blocks import ConvStack
+from audio_key_estimation_torch.ops import convstack_cuda as CS
 from audio_key_estimation_torch.predict import KeyEstimator
 from audio_key_estimation_torch.train import trainer
 from audio_key_estimation_torch.utils import profiling
@@ -172,7 +178,7 @@ def test_predict_files_is_one_request_over_its_stages(tmp_path):
     want = {"samples": sum(lengths), "samples_padded": 3 * 4 * SR}
     assert pack.counts == want and delta(before, "akx.pack") == want
     assert all(s.counts == {} for s in found
-               if s.name not in ("akx.pack", "akx.h2d"))
+               if s.name not in ("akx.pack", "akx.h2d", "akx.stack"))
     h2d = next(s for s in found if s.name == "akx.h2d")
     # the CPU takes the fresh, pageable path: nothing page-locked
     assert h2d.counts == {"bytes": 3 * 4 * SR * 2 + 3 * 4, "pinned_bytes": 0}
@@ -186,6 +192,60 @@ def test_the_ensemble_is_one_model_span():
     names = [s.name for s in spans()]
     assert names.count("akx.model") == 1
     assert names.count("akx.features") == 1 and names.count("akx.request") == 1
+
+
+# ConvStack kinds: (Config flags, convs a stack runs at conv_layers 1,
+# residual blocks)
+STACKS = {"plain": ({}, 1, 0), "resblock": ({"resblock": True}, 3, 1),
+          "denseblock": ({"denseblock": True}, 2, 0)}
+
+
+@pytest.mark.parametrize("kind", sorted(STACKS))
+def test_each_conv_stack_is_one_stack_span_under_the_model(kind):
+    flags, convs, blocks = STACKS[kind]
+    est = estimator(**flags)
+    n = sum(isinstance(m, ConvStack) for m in est.model.modules())
+    y = np.random.default_rng(0).normal(size=(2, 3 * SR)).astype(np.float32)
+    with profiled():
+        est.predict_waveforms(list(y), SR)
+    found = spans()
+    model = [s for s in found if s.name == "akx.model"]
+    stacks = [s for s in found if s.name == "akx.stack"]
+    assert len(model) == 1 and n == 3 and len(stacks) == n
+    assert all(s.parent == model[0].id for s in stacks)
+    assert all(s.request == model[0].request for s in stacks)
+    assert all(s.counts == {"convs": convs, "res_blocks": blocks}
+               for s in stacks)
+    assert "akx.stack" not in totals()
+
+
+def test_off_a_session_a_stack_records_nothing():
+    est = estimator(resblock=True)
+    y = np.random.default_rng(1).normal(size=(2, 3 * SR)).astype(np.float32)
+    old = spans()
+    est.predict_waveforms(list(y), SR)
+    assert spans() == old
+    assert span("akx.stack", tally=False, convs=7, res_blocks=3) \
+        is span("akx.model")
+    assert "akx.stack" not in totals()
+
+
+def test_the_fused_stack_is_one_span(monkeypatch):
+    """Kernel C's stack (its plain version here) runs inside one
+    akx.stack whose record counts its three layers."""
+    g = torch.Generator().manual_seed(0)
+    stack = ConvStack(5, 8, 7, 3, False, g, fused_serving=True).eval()
+    x = torch.randn(1, 5, 12, 6)
+    assert stack.use_fused(x)
+    calls = []
+    fused = CS.fused_convstack
+    monkeypatch.setattr(CS, "fused_convstack",
+                        lambda *a: calls.append(1) or fused(*a))
+    with profiled(), torch.inference_mode():
+        stack(x)
+    assert calls == [1]
+    assert [(s.name, s.counts) for s in spans()] == [
+        ("akx.stack", {"convs": 3, "res_blocks": 0})]
 
 
 def dataset(n: int, seed=0):
