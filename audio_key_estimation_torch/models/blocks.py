@@ -25,6 +25,7 @@ from torch import nn
 from ..ops import convstack_cuda as CS
 from ..ops import equivariant as eqv
 from ..ops import pooling
+from ..ops import resstack_cuda as RS
 from ..ops.convstack_cuda import LEAKY_SLOPE
 from ..parallel.mesh import all_reduce_
 from ..utils.profiling import span
@@ -334,11 +335,17 @@ class ConvStack(nn.Module):
     ResBlocks from 3; with denseblock one DenseBlock at 0. With
     fused_serving, an eval-mode plain Pitch2Pitch stack at kernel C's
     geometry runs through ops/convstack_cuda.py (the JAX package's
-    `_use_fused` gate, without its TPU lane constraints).
+    `_use_fused` gate, without its TPU lane constraints); an eval-mode
+    float32 residual Pitch2Pitch stack at the published widths runs
+    through ops/resstack_cuda.py (`use_res_kernel`).
 
     Each forward is one `akx.stack` span, fused or not, whose record
     carries `convs` (the convolutions the stack runs: conv_layers plain,
-    a stem and two a block residual, two a layer dense) and `res_blocks`.
+    a stem and two a block residual, two a layer dense) and `res_blocks`;
+    a stack whose geometry csrc/resconv7.cu is built for
+    (`res_kernel_fits`) also carries `hand_kernel`: 1 where
+    use_res_kernel took it (the kernel on a card, its plain version on
+    the CPU), else 0.
     """
 
     def __init__(self, in_ch, out_ch, kernel_size, conv_layers, equivariant,
@@ -376,6 +383,10 @@ class ConvStack(nn.Module):
         self.equivariant = equivariant
         self.plain = not (resblock or denseblock)
         self.fused_serving = fused_serving
+        # residual, non-equivariant, kernel 7, at widths resconv7 is built for
+        self.res_kernel_fits = (resblock and not equivariant
+                                and kernel_size == RS.KERNEL
+                                and RS.supported(in_ch, out_ch))
         self.span_counts = {
             "convs": (1 + 2 * conv_layers if resblock else
                       2 * conv_layers if denseblock else conv_layers),
@@ -397,6 +408,23 @@ class ConvStack(nn.Module):
         return (self.fusable and not self.training
                 and CS.supported_geometry(x.shape[2], x.shape[3], self.cins))
 
+    def use_res_kernel(self, x: torch.Tensor) -> bool:
+        """Eval-only dispatch to csrc/resconv7.cu, one launch a conv: a
+        residual, non-equivariant kernel-7 stack whose stem and blocks are
+        channel pairs the kernel is built for, fused_serving on, on
+        float32 input at H >= 3 and T >= 3."""
+        return (self.res_kernel_fits and self.fused_serving
+                and not self.training and x.dtype == torch.float32
+                and x.shape[2] >= 3 and x.shape[3] >= 3)
+
+    def res_convs(self) -> list:
+        """The stem's and each block's two convs as resconv7 operands."""
+        convs = [RS.operands(self.layer[0], self.layer[1])]
+        for block in self.layer[3:]:
+            convs += [RS.operands(block.conv1, block.b1),
+                      RS.operands(block.conv2, block.b2)]
+        return convs
+
     def folded_layers(self):
         """[(weight, bias)] with each BatchNorm folded in, float32."""
         convs, bns = self.layer[0::3], self.layer[1::3]
@@ -405,7 +433,13 @@ class ConvStack(nn.Module):
                 for c, b in zip(convs, bns)]
 
     def forward(self, x):
-        with span("akx.stack", tally=False, **self.span_counts):
+        res = self.use_res_kernel(x)
+        counts = self.span_counts
+        if self.res_kernel_fits:
+            counts = {**counts, "hand_kernel": int(res)}
+        with span("akx.stack", tally=False, **counts):
+            if res:
+                return RS.residual_stack(x, self.res_convs())
             if self.use_fused(x):
                 return CS.fused_convstack(x, self.folded_layers())
             for m in self.layer:

@@ -185,6 +185,7 @@ import gc
 import json
 import logging
 import os
+import re
 import struct
 import subprocess
 import sys
@@ -216,6 +217,7 @@ from audio_key_estimation_torch.ops.frontend import (compute_cqt,
                                                      feature_bins,
                                                      torch_dtype)
 from audio_key_estimation_torch.ops import probes_cuda as PC
+from audio_key_estimation_torch.ops import resstack_cuda as RS
 from audio_key_estimation_torch.parallel.mesh import (init_data_parallel,
                                                       make_mesh, rank_rows)
 from audio_key_estimation_torch.predict import KeyEstimator, key_name
@@ -740,6 +742,83 @@ def conv_library(plain_inputs, wp, bias) -> dict:
     return res
 
 
+RES_SHAPE = (256, 288, 901)   # resblock.resident: B, H, T at 180 s
+RES_MAX_ABS, RES_MEAN_ABS = 1e-4, 1e-6  # tests/test_torch_resconv7_card.py
+# a served residual stack against the plain stack, as shares of the plain
+# stack's largest and mean magnitude: float32 sums of seven convs in two
+# orders
+RES_STACK_MAX_REL, RES_STACK_MEAN_REL = 1e-4, 1e-5
+
+
+@ieee_float32()
+def check_res_kernel(device) -> dict:
+    """The residual Pitch2Pitch conv kernel (csrc/resconv7.cu) at the
+    resblock.resident cell's shapes, each template (stem 5 -> 8, a block's
+    8 -> 16 and 16 -> 8 with the skip): against its plain version in IEEE
+    float32 (cuDNN, TF32 off for this call), its time beside its float32
+    bound (benchmark/yardstick/resstack.conv_bound), the plain version's
+    time and one cuDNN F.conv2d (IEEE float32, the conv alone, no
+    BatchNorm, skip or leaky-ReLU) on the input circularly pre-padded
+    (library_ms: a yardstick the port never calls). A stack summed from
+    them: its 7 convs. The served stacks' launches and outputs are held in
+    phase 4 (expected_launches, hold_res_stack)."""
+    from benchmark.yardstick import resstack
+    B, H, T = RES_SHAPE
+    g = torch.Generator(device=device).manual_seed(22)
+    convs, err = {}, 0.0
+    for cin, cout, skip in RS.CONVS:
+        x = torch.randn(B, cin, H, T, device=device, generator=g)
+        sk = torch.randn(B, cout, H, T, device=device, generator=g) \
+            if skip else None
+        bnd = 1.0 / (cin * 49) ** 0.5
+        c = RS.Conv(
+            (torch.rand(cin, 7, 7, cout, device=device, generator=g) * 2 - 1)
+            * bnd,
+            (torch.rand(cout, device=device, generator=g) * 2 - 1) * bnd,
+            1 + 0.2 * torch.randn(cout, device=device, generator=g),
+            0.1 * torch.randn(cout, device=device, generator=g))
+        d = (RS.resconv7(x, c, sk) - RS.resconv7_plain(x, c, sk)).abs()
+        r = {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean())}
+        del d
+        if r["max_abs_err"] > RES_MAX_ABS or r["mean_abs_err"] > RES_MEAN_ABS:
+            raise AssertionError(f"resconv7 {cin}->{cout}: {r}")
+        err = max(err, r["max_abs_err"])
+        b = resstack.conv_bound(B, H, T, cin, cout, 7, 7,
+                                skip=cout if skip else 0)
+        r.update(bound_ms=b["bound_s"] * 1e3, bound_by=b["bound_by"],
+                 ms=time_ms(lambda: RS.resconv7(x, c, sk), reps=5),
+                 card_ms=graph_ms(lambda: RS.resconv7(x, c, sk), reps=5,
+                                  repeat=2),
+                 plain_ms=time_ms(lambda: RS.resconv7_plain(x, c, sk),
+                                  reps=5))
+        xp = equivariant.circular_pad(x, 3, 3)
+        w = c.weight.permute(3, 0, 1, 2).contiguous()
+        r["library_ms"] = time_ms(lambda: F.conv2d(xp, w, c.bias), reps=5)
+        del x, sk, xp
+        convs[f"{cin}->{cout}" + (" +skip" if skip else "")] = r
+        log(f"[3 kernels] resconv7 {cin}->{cout}{' + skip' if skip else ''} "
+            f"at {RES_SHAPE}: max|d| {r['max_abs_err']:.3g} mean "
+            f"{r['mean_abs_err']:.3g} against plain (IEEE); {r['ms']:.3f} "
+            f"ms eager, {r['card_ms']:.3f} on the card, bound "
+            f"{r['bound_ms']:.3f} ms ({r['bound_by']}, "
+            f"{r['bound_ms'] / r['card_ms']:.1%}); plain "
+            f"{r['plain_ms']:.3f} ms; library cuDNN F.conv2d f32 (IEEE) "
+            f"on the pre-padded input {r['library_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    # a stack: the stem and three blocks, 7 launches
+    per_stack = [convs["5->8"]] + [convs["8->16"], convs["16->8 +skip"]] * 3
+    res = {"R": err, "R_convs": convs}
+    for key in ("ms", "card_ms", "plain_ms", "library_ms", "bound_ms"):
+        res["R_" + key] = sum(r[key] for r in per_stack)
+    log(f"[3 kernels] resconv7, a stack (5 -> 8, 3 blocks) summed from its "
+        f"7 convs at {RES_SHAPE}: {res['R_card_ms']:.2f} ms on the card "
+        f"against its bound {res['R_bound_ms']:.2f} ms "
+        f"({res['R_bound_ms'] / res['R_card_ms']:.1%}), plain "
+        f"{res['R_plain_ms']:.1f} ms, cuDNN's convs alone "
+        f"{res['R_library_ms']:.1f} ms")
+    return res
+
+
 @ieee_float32()
 def check_edge_geometries(device) -> None:
     """Small shapes off the main path: odd batches, other sample rates
@@ -987,7 +1066,7 @@ def oracle_cqt_cases(y16, device, sd, res) -> list:
             got, n = served_magnitudes(y, p, sd, True)
             plain, n_plain = served_magnitudes(y, p, sd, False)
             want = {"cascade_pad": octaves - 1, "octave_response": 1,
-                    "conv7_layer": 0}
+                    "conv7_layer": 0, "resconv7": 0}
             if n != want or any(n_plain.values()):
                 raise AssertionError(f"{case}: launches {n} (want {want}), "
                                      f"plain path {n_plain}")
@@ -1207,7 +1286,7 @@ MULTI_SCALE = {
     "multi_scale_linear_reg_genre": dict(multi_scale=True,
                                          linear_reg_multi=True, genre=True),
 }
-COUNTERS = (K.cascade_pad, K.octave_response, CS.conv7_layer)
+COUNTERS = (K.cascade_pad, K.octave_response, CS.conv7_layer, RS.resconv7)
 
 
 def fused_layers(model: torch.nn.Module) -> int:
@@ -1217,14 +1296,27 @@ def fused_layers(model: torch.nn.Module) -> int:
                if isinstance(m, ConvStack) and m.fusable)
 
 
+def res_stacks(model: torch.nn.Module) -> list:
+    """The stacks csrc/resconv7.cu is built for, with fused_serving on:
+    ConvStack.use_res_kernel takes each of them in an eval forward on
+    float32 input."""
+    return [m for m in model.modules() if isinstance(m, ConvStack)
+            and m.res_kernel_fits and m.fused_serving]
+
+
 def expected_launches(est: KeyEstimator) -> dict:
     """Launches one served batch must make, from its config: for each CQT
     the model consumes (feature_bins: one, or two for the multi-scale
     ensemble) kernel A once per octave step and B once; C once per layer
-    of every stack its gate takes (ConvStack.fusable), in every tower."""
+    of every stack its gate takes (ConvStack.fusable), in every tower;
+    resconv7 once per conv of every stack its gate takes (res_stacks, a
+    float32 model)."""
     n_cqt = len(feature_bins(est.cfg))
+    res = sum(m.span_counts["convs"] for m in res_stacks(est.model)) \
+        if est.cfg.dtype == "float32" else 0
     return {"cascade_pad": n_cqt * (est.cfg.octaves - 1),
-            "octave_response": n_cqt, "conv7_layer": fused_layers(est.model)}
+            "octave_response": n_cqt, "conv7_layer": fused_layers(est.model),
+            "resconv7": res}
 
 
 def counted(fn):
@@ -1248,15 +1340,18 @@ def served(est: KeyEstimator, fn):
     """counted(fn), recording what the served batch gave the kernels:
     each est.features call's (batch, sr, hop) and log-CQTs (kernels A and
     B; two for the multi-scale ensemble; one call per shard of the mesh),
-    and the input of every ConvStack that kernel C's gate takes, in every
-    tower and every replica.
+    and the input of every ConvStack that kernel C's or resconv7's gate
+    takes (ConvStack.fusable, res_stacks), in every tower and every
+    replica.
     Returns (result, launches, wall seconds, features, stacks)."""
     feats, stacks = [], []
     nets = [*est.replicas, *est.local_replicas]
     hooks = [m.register_forward_pre_hook(
         lambda m, args: stacks.append((m, args[0])))
-        for net in nets for m in net.modules()
-        if isinstance(m, ConvStack) and m.fusable]
+        for net in nets for m in [
+            *(m for m in net.modules()
+              if isinstance(m, ConvStack) and m.fusable),
+            *res_stacks(net)]]
     features = est.features
 
     def recording(batch, sr, hop):
@@ -1278,13 +1373,15 @@ def hold_served(name: str, est: KeyEstimator, feats, stacks) -> dict:
     """The served batch's kernel work again on its own card tensors,
     against the plain versions: each of its log-CQTs (one per
     feature_bins entry) against the plain cqt at its own bins/octave at
-    check_cqt's bars, and every stack kernel C took, in every tower, layer
-    by layer at check_conv7's bars (check_stack). The plain versions in
-    IEEE float32, as the served path computes float32."""
+    check_cqt's bars, every stack kernel C took, in every tower, layer
+    by layer at check_conv7's bars (check_stack), and every stack resconv7
+    took, whole, against residual_stack_plain (hold_res_stack). The plain
+    versions in IEEE float32, as the served path computes float32."""
     cfg = est.cfg
     sd = torch_dtype(cfg.cqt_conv_dtype)
     res = {"cqt_d": 0.0, "cqt_bins": [], "stacks": [], "c_d": 0.0,
-           "beyond_1ulp": 0, "stack_rel": 0.0}
+           "beyond_1ulp": 0, "stack_rel": 0.0, "res_stacks": [],
+           "r_rel": 0.0}
     if not feats:
         raise AssertionError(f"{name}: the served batch ran no CQT")
     with torch.inference_mode():
@@ -1300,6 +1397,10 @@ def hold_served(name: str, est: KeyEstimator, feats, stacks) -> dict:
                 res["cqt_bins"].append(bpo)
             res["cqt_batch"] = tuple(batch.shape)
         for m, x in stacks:
+            if not m.fusable:
+                res["r_rel"] = max(res["r_rel"], hold_res_stack(name, m, x))
+                res["res_stacks"].append(f"{tuple(x.shape)}")
+                continue
             if not m.use_fused(x):
                 raise AssertionError(f"{name}: kernel C's gate refused a "
                                      f"stack at {tuple(x.shape)}")
@@ -1311,6 +1412,31 @@ def hold_served(name: str, est: KeyEstimator, feats, stacks) -> dict:
             res["beyond_1ulp"] += s["beyond_1ulp"]
             res["stack_rel"] = max(res["stack_rel"], s["rel"])
     return res
+
+
+def hold_res_stack(name: str, m: ConvStack, x: torch.Tensor) -> float:
+    """One served resconv7 stack again on its own input, 7 launches,
+    against the plain stack: max |d| within RES_STACK_MAX_REL of the
+    plain stack's largest magnitude, mean |d| within RES_STACK_MEAN_REL of
+    its mean magnitude. Returns the max |d| over the largest."""
+    if not m.use_res_kernel(x):
+        raise AssertionError(f"{name}: resconv7's gate refused a stack at "
+                             f"{tuple(x.shape)} {x.dtype}")
+    convs = m.res_convs()
+    n = RS.resconv7.launches
+    got = RS.residual_stack(x, convs)
+    if RS.resconv7.launches != n + m.span_counts["convs"]:
+        raise AssertionError(f"{name}: a resconv7 stack launched "
+                             f"{RS.resconv7.launches - n} times")
+    ref = RS.residual_stack_plain(x, convs)
+    d = (got - ref).abs()
+    rel = float(d.max() / ref.abs().max())
+    mean_rel = float(d.mean() / ref.abs().mean())
+    if not (rel <= RES_STACK_MAX_REL and mean_rel <= RES_STACK_MEAN_REL):
+        raise AssertionError(f"{name}: served resconv7 stack "
+                             f"{tuple(x.shape)} max rel {rel:.3g}, mean rel "
+                             f"{mean_rel:.3g}")
+    return rel
 
 
 def agreement(name: str, preds, ref, shape) -> dict:
@@ -1355,7 +1481,10 @@ def held_text(name: str, h: dict) -> str:
             f"stacks [{', '.join(h['stacks'])}] layer by layer max|d| "
             f"{h['c_d']:.3g}, {h['beyond_1ulp']} elements beyond 1 bf16 ulp "
             f"(within the float32 sum bound), stack max rel "
-            f"{h['stack_rel']:.3g}")
+            f"{h['stack_rel']:.3g}"
+            + (f"; resconv7 stacks [{', '.join(h['res_stacks'])}] whole, "
+               f"max |d| {h['r_rel']:.3g} of the plain stack's largest"
+               if h["res_stacks"] else ""))
 
 
 def serve_variants(paths, device) -> dict:
@@ -1399,7 +1528,8 @@ def serve_variants(paths, device) -> dict:
                      "wall_ms": wall * 1e3, "plain_wall_ms": wall_plain * 1e3,
                      "split": split, "held": held}
         log(f"[4 serve] variant {name}: launches A {launches['cascade_pad']}"
-            f" B {launches['octave_response']} C {launches['conv7_layer']}; "
+            f" B {launches['octave_response']} C {launches['conv7_layer']} "
+            f"resconv7 {launches['resconv7']}; "
             f"{agreement_text(agree)}; key |d| vs CPU {dcpu:.3g}; e.g. "
             f"{preds[0].key!r} / plain {ref[0].key!r}; wall "
             f"{wall * 1e3:.1f} ms = {audio_min / wall:.1f} audio-min/s "
@@ -2162,6 +2292,12 @@ def profiled(fn) -> dict:
             "pads_lost": len(pads - recorded)}
 
 
+# kernel C's device rows by their demangled name, `void (anonymous
+# namespace)::conv7_kernel<IN, OUT>(...)`: anchored, so that no other
+# kernel whose name holds the substring is taken for it
+KERNEL_C_ROW = re.compile(r"(?<!\w)conv7_kernel<")
+
+
 def device_rows(fn) -> dict:
     """fn() once as a warm-up, then once profiled (profiled): its device
     rows only (kernels and copies; the host's aten rows carry the same
@@ -2175,7 +2311,7 @@ def device_rows(fn) -> dict:
     for e in p["rows"]:
         us = e.time_range.elapsed_us()
         rows[e.name] = rows.get(e.name, 0.0) + us / 1e3
-        if "conv7_kernel" in e.name:
+        if KERNEL_C_ROW.search(e.name):
             conv7 += 1
             conv7_us += us
     return {"total_ms": sum(rows.values()), "kernels": len(p["rows"]),
@@ -2879,7 +3015,7 @@ def run_train(roots: dict, td: str, device, cfg: Config,
     n_batches = -(-len(val) // cfg.batch_size)
     per_batch = fused_layers(state.model)
     want = {"cascade_pad": 0, "octave_response": 0,
-            "conv7_layer": per_batch * n_batches * len(hist)}
+            "conv7_layer": per_batch * n_batches * len(hist), "resconv7": 0}
     steps = cfg.epochs * (len(train) // (cfg.batch_size * cfg.acc_grad))
     if not per_batch or fit_launches != want or state.step != steps:
         raise AssertionError(f"fit: launches {fit_launches} (want {want}), "
@@ -3932,8 +4068,8 @@ def run_converge(device) -> dict:
     val_batches = -(-r["val"] // cfg.batch_size)
     steps = (len(hist) - 1) * (r["train"] // cfg.batch_size)
     want = {"cqt": [[cfg.octaves - 1, 1]] * groups,
-            "eval": [[0, 0, 3]] * (val_batches * len(hist)),
-            "train": [[0, 0, 0]] * steps}
+            "eval": [[0, 0, 3, 0]] * (val_batches * len(hist)),
+            "train": [[0, 0, 0, 0]] * steps}
     if (r["train"], r["val"]) != (240, 48) or calls != want:
         raise AssertionError(f"converge: {r['train']} + {r['val']} songs, "
                              f"launches per call {calls} (want {want})")
@@ -3980,8 +4116,8 @@ def main() -> int:
     ops = _build.registered_ops()
     for schema in ops:
         log(f"[2 build]   {schema}")
-    if len(ops) != 8:
-        raise AssertionError(f"expected 8 akt operators, found {len(ops)}")
+    if len(ops) != 9:
+        raise AssertionError(f"expected 9 akt operators, found {len(ops)}")
     for line in so.with_suffix(".log").read_text().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[2 build]   {line.strip()}")
@@ -3997,6 +4133,7 @@ def main() -> int:
     p = C.CQTParams(sr=SR, hop=C.reference_hop(SR, Config().frames))
     res = check_cqt_kernels(y, p)
     res.update(check_conv_kernel(device))
+    res.update(check_res_kernel(device))
     del y
     check_edge_geometries(device)
     oracle = run_oracle(waves, device)
@@ -4077,9 +4214,13 @@ def main() -> int:
         # phase 4b: one served batch of each size and bucket
         by_path[k] |= {f"batch {name}": r["launches"][k]
                        for name, r in batches.items()}
-        # phase 7b: each call of the bench's headline cell
-        by_path[k]["bench, a call (kernels float32 B 256)"] = bench[
-            "fronts"]["kernels"]["float32"]["b256"]["launches_per_call"][k][0]
+        # phase 7b: each call of the bench's headline cell (bench.py
+        # counts kernels A, B and C)
+        per_call = bench["fronts"]["kernels"]["float32"]["b256"][
+            "launches_per_call"]
+        if k in per_call:
+            by_path[k]["bench, a call (kernels float32 B 256)"] = \
+                per_call[k][0]
         # phase 8: the global phase's import, train steps and validations
         by_path[k]["converge"] = converge["launches"][k]
         # phase 3o: each served CQT held against an oracle, and the default
@@ -4159,6 +4300,18 @@ def main() -> int:
             model_stage_conv7_ms=srv["default"]["split"]["conv7_ms"],
             launches_by_path=by_path["conv7_layer"],
             served_max_abs_err=served_c_d, by_batch=by_batch("C")),
+        row("resconv7 (the residual Pitch2Pitch stack, 7 launches: stem "
+            "5->8, 3 x (8->16, 16->8 + skip); ms, plain and library summed "
+            "over a stack at (256, 288, 901))", "resconv7.cu",
+            "none: XLA conv in the JAX package",
+            by_path["resconv7"]["variant resblock"],
+            res["R"], res["R_ms"], res["R_plain_ms"],
+            {"bound_ms": res["R_bound_ms"], "bound_by": "operations"},
+            res["R_library_ms"], card_ms=res["R_card_ms"],
+            library="F.conv2d f32 (IEEE) on the circularly pre-padded "
+                    "input, the conv alone, 7 calls",
+            convs=res["R_convs"], launches_by_path=by_path["resconv7"],
+            served_max_rel_err=max(h["r_rel"] for h in held)),
         row("window_copy (#5, six variants; ms summed)",
             "probe_window_copy.cu", "scripts/probe_dma_rate.py:57",
             m["window_copy"], 0.0, probe["window"]["ms"],

@@ -30,6 +30,7 @@ from audio_key_estimation_torch.ops import _build
 from audio_key_estimation_torch.ops import convstack_cuda as CS
 from audio_key_estimation_torch.ops import cqt_cuda as K
 from audio_key_estimation_torch.ops import probes_cuda as PC
+from audio_key_estimation_torch.ops import resstack_cuda as RS
 from audio_key_estimation_torch.scripts import probe_pallas_overhead
 
 REPO = Path(__file__).resolve().parent.parent
@@ -178,7 +179,8 @@ def wrapper_calls() -> dict:
 
 
 OPS = ("cascade_pad", "octave_response", "octave_response_stage", "conv7",
-       "window_copy", "transpose_pad", "launch_probe", "probe_primitive")
+       "window_copy", "transpose_pad", "launch_probe", "probe_primitive",
+       "resconv7")
 
 
 def test_wrappers_call_every_defined_operator():
@@ -252,6 +254,9 @@ WRAPPERS = {   # wrapper, its plain version's name in its module, arguments
     "conv7": (CS, "conv7_layer", "conv7_layer_plain", lambda: (
         _meta(1, 8, 8, 8, dtype=torch.bfloat16),
         _meta(7, 4, 2, 8, 8, dtype=torch.bfloat16), _meta(8))),
+    "resconv7": (RS, "resconv7", "resconv7_plain", lambda: (
+        _meta(1, 5, 8, 8), RS.Conv(_meta(5, 7, 7, 8), _meta(8), _meta(8),
+                                   _meta(8)))),
     "window_copy": (PC, "window_copy", "window_copy_plain", lambda: (
         _stream16(), _starts(), "dma3", 8, 528)),
     "transpose_pad": (PC, "transpose_pad", "transpose_pad_plain",

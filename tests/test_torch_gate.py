@@ -145,7 +145,10 @@ def test_kernel_c_launches_follow_the_jax_gate(name, monkeypatch):
 def test_chip_smoke_expects_the_jax_gate_at_full_width(name, monkeypatch):
     """chip_smoke.py serves every variant of the matrix and the bf16 model
     at the default Config's widths, and the kernel C launches it demands
-    of each (chip_smoke.expected_launches) are the JAX gate's there."""
+    of each (chip_smoke.expected_launches) are the JAX gate's there; the
+    residual conv kernel's are 7, the resblock variant's Pitch2Pitch
+    stack (stem 5 -> 8), and none elsewhere (resblock_pc2p_mem's stem is
+    4 -> 8)."""
     import types
 
     import chip_smoke
@@ -158,4 +161,5 @@ def test_chip_smoke_expects_the_jax_gate_at_full_width(name, monkeypatch):
         model=PitchClassNet(PortConfig(fused_convstack=True, **kw)))
     want = jax_gate_launches(Config(fused_convstack=True, **kw), monkeypatch)
     assert chip_smoke.expected_launches(est) == {
-        "cascade_pad": 7, "octave_response": 1, "conv7_layer": want}
+        "cascade_pad": 7, "octave_response": 1, "conv7_layer": want,
+        "resconv7": 7 if name == "resblock" else 0}

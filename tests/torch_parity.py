@@ -64,11 +64,15 @@ def variant_pair(name: str, seed: int = 7):
     """(cfg, flax model, numpy variables, the port's model loaded with
     them in eval mode) for one variant of the matrix; built once per
     process (flax's eager init compiles every op on first use)."""
+    return config_pair(variant_config(name), seed)
+
+
+def config_pair(cfg, seed: int = 7):
+    """variant_pair for any JAX Config."""
     import torch  # noqa: F401  (the port's model below is torch)
     from audio_key_estimation_torch.models import PitchClassNet
     from audio_key_estimation_torch.models.convert import (
         load_state_dict, state_dict_from_jax)
-    cfg = variant_config(name)
     model, variables = jax_variables(cfg, np.random.default_rng(seed))
     net = PitchClassNet(cfg)
     load_state_dict(net, state_dict_from_jax(variables))
