@@ -22,11 +22,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops import convstack_cuda as CS
 from ..ops import equivariant as eqv
 from ..ops import pooling
-from ..ops import resstack_cuda as RS
-from ..ops.convstack_cuda import LEAKY_SLOPE
+from ..ops.stack_epilogue import LEAKY_SLOPE
+from ..ops.stack_kernels import kernel_for
 from ..parallel.mesh import all_reduce_
 from ..utils.profiling import span
 
@@ -332,20 +331,18 @@ class ConvStack(nn.Module):
     equivariant=True gives PitchClass2PitchClass, False gives
     Pitch2Pitch. `layer` mirrors the reference's Sequential indices: conv
     i at 3i (BN 3i + 1); with resblock a conv/BN stem at 0, 1 and the
-    ResBlocks from 3; with denseblock one DenseBlock at 0. With
-    fused_serving, an eval-mode plain Pitch2Pitch stack at kernel C's
-    geometry runs through ops/convstack_cuda.py (the JAX package's
-    `_use_fused` gate, without its TPU lane constraints); an eval-mode
-    float32 residual Pitch2Pitch stack at the published widths runs
-    through ops/resstack_cuda.py (`use_res_kernel`).
+    ResBlocks from 3; with denseblock one DenseBlock at 0. `kernel` is
+    the hand kernel built for the stack's structure (ops/stack_kernels.py:
+    kernel C for a plain Pitch2Pitch stack at its geometry, resconv7 for
+    a residual one at the published widths), or None; forward runs it
+    where `runs_kernel` says.
 
-    Each forward is one `akx.stack` span, fused or not, whose record
+    Each forward is one `akx.stack` span, kernel or not, whose record
     carries `convs` (the convolutions the stack runs: conv_layers plain,
     a stem and two a block residual, two a layer dense) and `res_blocks`;
-    a stack whose geometry csrc/resconv7.cu is built for
-    (`res_kernel_fits`) also carries `hand_kernel`: 1 where
-    use_res_kernel took it (the kernel on a card, its plain version on
-    the CPU), else 0.
+    a stack whose kernel is `recorded` (resconv7) also carries
+    `hand_kernel`: 1 where forward ran it (the kernel on a card, its
+    plain version on the CPU), else 0.
     """
 
     def __init__(self, in_ch, out_ch, kernel_size, conv_layers, equivariant,
@@ -378,70 +375,41 @@ class ConvStack(nn.Module):
                          BatchNorm(out_ch), nn.LeakyReLU(LEAKY_SLOPE)]
         self.layer = nn.ModuleList(mods)
         self.cins = [in_ch] + [out_ch] * (conv_layers - 1)
-        self.out_ch = out_ch
-        self.kernel_size = kernel_size
-        self.equivariant = equivariant
-        self.plain = not (resblock or denseblock)
         self.fused_serving = fused_serving
-        # residual, non-equivariant, kernel 7, at widths resconv7 is built for
-        self.res_kernel_fits = (resblock and not equivariant
-                                and kernel_size == RS.KERNEL
-                                and RS.supported(in_ch, out_ch))
         self.span_counts = {
             "convs": (1 + 2 * conv_layers if resblock else
                       2 * conv_layers if denseblock else conv_layers),
             "res_blocks": conv_layers if resblock else 0}
+        self.kernel = kernel_for(
+            "residual" if resblock else "dense" if denseblock else "plain",
+            equivariant, kernel_size, self.cins, out_ch)
 
-    @property
-    def fusable(self) -> bool:
-        """Kernel C takes this stack's layers: plain (no res/dense
-        blocks, non-equivariant), kernel 7, 8 outputs, <= 8 channels in,
-        fused_serving on. Each eval forward at H, T >= 3 then launches it
-        once per layer."""
-        return (self.fused_serving and self.plain and not self.equivariant
-                and self.kernel_size == CS.KERNEL and self.out_ch == CS.C
-                and all(1 <= ci <= CS.C for ci in self.cins))
-
-    def use_fused(self, x: torch.Tensor) -> bool:
-        """Eval-only dispatch to kernel C: a fusable stack at T >= 3 and
-        H >= 3."""
-        return (self.fusable and not self.training
-                and CS.supported_geometry(x.shape[2], x.shape[3], self.cins))
-
-    def use_res_kernel(self, x: torch.Tensor) -> bool:
-        """Eval-only dispatch to csrc/resconv7.cu, one launch a conv: a
-        residual, non-equivariant kernel-7 stack whose stem and blocks are
-        channel pairs the kernel is built for, fused_serving on, on
-        float32 input at H >= 3 and T >= 3."""
-        return (self.res_kernel_fits and self.fused_serving
-                and not self.training and x.dtype == torch.float32
+    def runs_kernel(self, x: torch.Tensor) -> bool:
+        """Whether forward runs `kernel` on x: fused_serving on, eval
+        mode, a dtype the kernel takes, H >= 3 and T >= 3 (on shorter
+        axes the JAX package's concat wrap pads by fewer rows than the
+        kernels' circular pad of 3, so the module path runs there)."""
+        return (self.kernel is not None and self.fused_serving
+                and not self.training and x.dtype in self.kernel.dtypes
                 and x.shape[2] >= 3 and x.shape[3] >= 3)
 
-    def res_convs(self) -> list:
-        """The stem's and each block's two convs as resconv7 operands."""
-        convs = [RS.operands(self.layer[0], self.layer[1])]
-        for block in self.layer[3:]:
-            convs += [RS.operands(block.conv1, block.b1),
-                      RS.operands(block.conv2, block.b2)]
-        return convs
-
-    def folded_layers(self):
-        """[(weight, bias)] with each BatchNorm folded in, float32."""
-        convs, bns = self.layer[0::3], self.layer[1::3]
-        return [CS.fold_layer(c.weight, c.bias, b.weight, b.bias,
-                              b.running_mean, b.running_var, b.eps)
-                for c, b in zip(convs, bns)]
+    def conv_pairs(self) -> list:
+        """The (conv, BatchNorm) pairs in order: each plain layer's, or
+        the stem's and then each residual block's two."""
+        blocks = [m for m in self.layer if isinstance(m, ResBlock)]
+        if not blocks:
+            return list(zip(self.layer[0::3], self.layer[1::3]))
+        return [(self.layer[0], self.layer[1])] + [
+            p for b in blocks for p in ((b.conv1, b.b1), (b.conv2, b.b2))]
 
     def forward(self, x):
-        res = self.use_res_kernel(x)
+        k, take = self.kernel, self.runs_kernel(x)
         counts = self.span_counts
-        if self.res_kernel_fits:
-            counts = {**counts, "hand_kernel": int(res)}
+        if k is not None and k.recorded:
+            counts = {**counts, "hand_kernel": int(take)}
         with span("akx.stack", tally=False, **counts):
-            if res:
-                return RS.residual_stack(x, self.res_convs())
-            if self.use_fused(x):
-                return CS.fused_convstack(x, self.folded_layers())
+            if take:
+                return k.run(x, k.operands(self.conv_pairs()))
             for m in self.layer:
                 x = m(x)
             return x

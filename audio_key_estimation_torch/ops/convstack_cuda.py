@@ -30,32 +30,18 @@ import torch.nn.functional as F
 
 from . import _build
 from .equivariant import circular_pad
+from .stack_epilogue import LEAKY_SLOPE, fold_bn_affine
 
-LEAKY_SLOPE = 0.01
 C = 8          # supported output channels; inputs pad up to this width
 KERNEL = 7
 PACKED = (KERNEL, 4, 2, C, C)      # [dh][tap pair][half][co][ci]
 STACK_DTYPES = (torch.float32, torch.bfloat16)
 
 
-def fold_bn_affine(gamma, beta, mean, var, eps: float = 1e-5):
-    """Eval BatchNorm as per-channel (scale, shift), in float32."""
-    s = gamma.float() / torch.sqrt(var.float() + eps)
-    return s, beta.float() - mean.float() * s
-
-
 def fold_layer(weight, bias, gamma, beta, mean, var, eps: float = 1e-5):
     """Conv (OIHW) + eval BatchNorm -> folded (weight, bias) in float32."""
     s, t = fold_bn_affine(gamma, beta, mean, var, eps)
     return weight.float() * s[:, None, None, None], bias.float() * s + t
-
-
-def supported_geometry(H: int, T: int, cins) -> bool:
-    """Kernel C's contract: <= 8 input channels in every layer and both
-    spatial axes at least as long as the circular pad (3); any B and H.
-    At T < 3 (or H < 3) the JAX package's concat wrap pads by fewer rows
-    than the kernel, so the plain path must run there."""
-    return H >= 3 and T >= 3 and all(1 <= ci <= C for ci in cins)
 
 
 def pack_weight(weight: torch.Tensor) -> torch.Tensor:
@@ -140,7 +126,7 @@ def conv7_layer(x: torch.Tensor, wp: torch.Tensor, bias: torch.Tensor,
     if (not x.is_contiguous()
             or x.dtype not in (STACK_DTYPES if nchw_in else (torch.bfloat16,))
             or (not nchw_in and (ci != C or x.data_ptr() % 16))
-            or not supported_geometry(H, T, [ci])
+            or min(H, T) < 3 or not 1 <= ci <= C
             or nchw_out not in (None, *STACK_DTYPES)
             or wp.dtype != torch.bfloat16 or tuple(wp.shape) != PACKED
             or not wp.is_contiguous() or bias.dtype != torch.float32

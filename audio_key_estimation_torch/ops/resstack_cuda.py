@@ -25,13 +25,14 @@ import torch
 import torch.nn.functional as F
 
 from . import _build
-from .convstack_cuda import LEAKY_SLOPE, fold_bn_affine
 from .equivariant import circular_pad
+from .stack_epilogue import LEAKY_SLOPE, fold_bn_affine
 
 KERNEL = 7
 # (cin, cout, adds the block's input): the stem, a block's first and
 # second conv at the published widths (5 -> 8, 8 -> 16, 16 -> 8)
 CONVS = ((5, 8, False), (8, 16, False), (16, 8, True))
+STACK_DTYPES = (torch.float32,)
 
 
 class Conv(NamedTuple):
@@ -41,12 +42,6 @@ class Conv(NamedTuple):
     bias: torch.Tensor
     scale: torch.Tensor
     shift: torch.Tensor
-
-
-def supported(cin: int, f: int) -> bool:
-    """The kernel takes a stack of stem cin -> f and blocks f -> 2f -> f."""
-    return all(c in CONVS for c in ((cin, f, False), (f, 2 * f, False),
-                                    (2 * f, f, True)))
 
 
 def operands(conv, bn) -> Conv:

@@ -8,8 +8,8 @@ names the result, one key per clip (`predict_files`) or one per local
 window (`predict_files_local`, the same weights run in local mode). On a
 CUDA device each CQT runs through kernels A and B
 (`Config.use_pallas_cqt` "auto"/"on") and, with `Config.fused_convstack`,
-every Pitch2Pitch stack that kernel C's gate takes
-(`models/blocks.ConvStack.fusable`) through kernel C. With a mesh
+every stack with a hand kernel (`models/blocks.ConvStack.kernel`,
+ops/stack_kernels.py) through it. With a mesh
 (`parallel.mesh.make_mesh`) serving is data-parallel over its devices,
 as the JAX estimator's is over a jax Mesh: one replica of the model per
 device, each batch's rows split evenly, shard i's CQT and model on

@@ -218,6 +218,7 @@ from audio_key_estimation_torch.ops.frontend import (compute_cqt,
                                                      torch_dtype)
 from audio_key_estimation_torch.ops import probes_cuda as PC
 from audio_key_estimation_torch.ops import resstack_cuda as RS
+from audio_key_estimation_torch.ops import stack_kernels as SK
 from audio_key_estimation_torch.parallel.mesh import (init_data_parallel,
                                                       make_mesh, rank_rows)
 from audio_key_estimation_torch.predict import KeyEstimator, key_name
@@ -1066,7 +1067,7 @@ def oracle_cqt_cases(y16, device, sd, res) -> list:
             got, n = served_magnitudes(y, p, sd, True)
             plain, n_plain = served_magnitudes(y, p, sd, False)
             want = {"cascade_pad": octaves - 1, "octave_response": 1,
-                    "conv7_layer": 0, "resconv7": 0}
+                    **{k.name: 0 for k in SK.KERNELS}}
             if n != want or any(n_plain.values()):
                 raise AssertionError(f"{case}: launches {n} (want {want}), "
                                      f"plain path {n_plain}")
@@ -1286,37 +1287,36 @@ MULTI_SCALE = {
     "multi_scale_linear_reg_genre": dict(multi_scale=True,
                                          linear_reg_multi=True, genre=True),
 }
-COUNTERS = (K.cascade_pad, K.octave_response, CS.conv7_layer, RS.resconv7)
+COUNTERS = (K.cascade_pad, K.octave_response,
+            *(k.counter for k in SK.KERNELS))
 
 
-def fused_layers(model: torch.nn.Module) -> int:
-    """Kernel C launches one forward of `model` makes: one per layer of
-    every stack its gate takes (ConvStack.fusable), in every tower."""
-    return sum(len(m.cins) for m in model.modules()
-               if isinstance(m, ConvStack) and m.fusable)
-
-
-def res_stacks(model: torch.nn.Module) -> list:
-    """The stacks csrc/resconv7.cu is built for, with fused_serving on:
-    ConvStack.use_res_kernel takes each of them in an eval forward on
-    float32 input."""
+def kernel_stacks(model: torch.nn.Module, name: str | None = None) -> list:
+    """The ConvStacks of `model`, in every tower, with a hand kernel
+    (ConvStack.kernel, of that name if given) and fused_serving on."""
     return [m for m in model.modules() if isinstance(m, ConvStack)
-            and m.res_kernel_fits and m.fused_serving]
+            and m.kernel is not None and m.fused_serving
+            and name in (None, m.kernel.name)]
+
+
+def stack_launches(model: torch.nn.Module, dtype) -> dict:
+    """Launches of each stack kernel one eval forward of `model` in
+    `dtype` makes: each stack's kernel's own count (C once per layer,
+    resconv7 once per conv) where the kernel takes the dtype."""
+    return {k.name: sum(k.launches(m) for m in kernel_stacks(model, k.name)
+                        if torch_dtype(dtype) in k.dtypes)
+            for k in SK.KERNELS}
 
 
 def expected_launches(est: KeyEstimator) -> dict:
     """Launches one served batch must make, from its config: for each CQT
     the model consumes (feature_bins: one, or two for the multi-scale
-    ensemble) kernel A once per octave step and B once; C once per layer
-    of every stack its gate takes (ConvStack.fusable), in every tower;
-    resconv7 once per conv of every stack its gate takes (res_stacks, a
-    float32 model)."""
+    ensemble) kernel A once per octave step and B once; each stack
+    kernel as stack_launches counts it."""
     n_cqt = len(feature_bins(est.cfg))
-    res = sum(m.span_counts["convs"] for m in res_stacks(est.model)) \
-        if est.cfg.dtype == "float32" else 0
     return {"cascade_pad": n_cqt * (est.cfg.octaves - 1),
-            "octave_response": n_cqt, "conv7_layer": fused_layers(est.model),
-            "resconv7": res}
+            "octave_response": n_cqt,
+            **stack_launches(est.model, est.cfg.dtype)}
 
 
 def counted(fn):
@@ -1340,18 +1340,14 @@ def served(est: KeyEstimator, fn):
     """counted(fn), recording what the served batch gave the kernels:
     each est.features call's (batch, sr, hop) and log-CQTs (kernels A and
     B; two for the multi-scale ensemble; one call per shard of the mesh),
-    and the input of every ConvStack that kernel C's or resconv7's gate
-    takes (ConvStack.fusable, res_stacks), in every tower and every
-    replica.
+    and the input of every ConvStack with a hand kernel (kernel_stacks),
+    in every tower and every replica.
     Returns (result, launches, wall seconds, features, stacks)."""
     feats, stacks = [], []
     nets = [*est.replicas, *est.local_replicas]
     hooks = [m.register_forward_pre_hook(
         lambda m, args: stacks.append((m, args[0])))
-        for net in nets for m in [
-            *(m for m in net.modules()
-              if isinstance(m, ConvStack) and m.fusable),
-            *res_stacks(net)]]
+        for net in nets for m in kernel_stacks(net)]
     features = est.features
 
     def recording(batch, sr, hop):
@@ -1380,7 +1376,7 @@ def hold_served(name: str, est: KeyEstimator, feats, stacks) -> dict:
     cfg = est.cfg
     sd = torch_dtype(cfg.cqt_conv_dtype)
     res = {"cqt_d": 0.0, "cqt_bins": [], "stacks": [], "c_d": 0.0,
-           "beyond_1ulp": 0, "stack_rel": 0.0, "res_stacks": [],
+           "beyond_1ulp": 0, "stack_rel": 0.0, "resconv7_stacks": [],
            "r_rel": 0.0}
     if not feats:
         raise AssertionError(f"{name}: the served batch ran no CQT")
@@ -1397,15 +1393,17 @@ def hold_served(name: str, est: KeyEstimator, feats, stacks) -> dict:
                 res["cqt_bins"].append(bpo)
             res["cqt_batch"] = tuple(batch.shape)
         for m, x in stacks:
-            if not m.fusable:
+            if not m.runs_kernel(x):
+                raise AssertionError(f"{name}: {m.kernel.name}'s gate "
+                                     f"refused a stack at {tuple(x.shape)} "
+                                     f"{x.dtype}")
+            if m.kernel.name == "resconv7":
                 res["r_rel"] = max(res["r_rel"], hold_res_stack(name, m, x))
-                res["res_stacks"].append(f"{tuple(x.shape)}")
+                res["resconv7_stacks"].append(f"{tuple(x.shape)}")
                 continue
-            if not m.use_fused(x):
-                raise AssertionError(f"{name}: kernel C's gate refused a "
-                                     f"stack at {tuple(x.shape)}")
             s = check_stack(f"{name}: served stack {tuple(x.shape)} "
-                            f"{x.dtype}", x, m.folded_layers())
+                            f"{x.dtype}", x,
+                            m.kernel.operands(m.conv_pairs()))
             res["stacks"].append(f"{len(m.cins)} x {tuple(x.shape)} "
                                  f"{str(x.dtype).split('.')[-1]}")
             res["c_d"] = max(res["c_d"], s["max_abs_err"])
@@ -1419,13 +1417,10 @@ def hold_res_stack(name: str, m: ConvStack, x: torch.Tensor) -> float:
     against the plain stack: max |d| within RES_STACK_MAX_REL of the
     plain stack's largest magnitude, mean |d| within RES_STACK_MEAN_REL of
     its mean magnitude. Returns the max |d| over the largest."""
-    if not m.use_res_kernel(x):
-        raise AssertionError(f"{name}: resconv7's gate refused a stack at "
-                             f"{tuple(x.shape)} {x.dtype}")
-    convs = m.res_convs()
+    convs = m.kernel.operands(m.conv_pairs())
     n = RS.resconv7.launches
     got = RS.residual_stack(x, convs)
-    if RS.resconv7.launches != n + m.span_counts["convs"]:
+    if RS.resconv7.launches != n + m.kernel.launches(m):
         raise AssertionError(f"{name}: a resconv7 stack launched "
                              f"{RS.resconv7.launches - n} times")
     ref = RS.residual_stack_plain(x, convs)
@@ -1482,9 +1477,9 @@ def held_text(name: str, h: dict) -> str:
             f"{h['c_d']:.3g}, {h['beyond_1ulp']} elements beyond 1 bf16 ulp "
             f"(within the float32 sum bound), stack max rel "
             f"{h['stack_rel']:.3g}"
-            + (f"; resconv7 stacks [{', '.join(h['res_stacks'])}] whole, "
-               f"max |d| {h['r_rel']:.3g} of the plain stack's largest"
-               if h["res_stacks"] else ""))
+            + (f"; resconv7 stacks [{', '.join(h['resconv7_stacks'])}] "
+               f"whole, max |d| {h['r_rel']:.3g} of the plain stack's "
+               f"largest" if h["resconv7_stacks"] else ""))
 
 
 def serve_variants(paths, device) -> dict:
@@ -2054,12 +2049,11 @@ def hold_sampled(name: str, est: KeyEstimator, served: dict, idx) -> dict:
     rows = torch.tensor(idx, device=batch.device)
     stacks = []
     hooks = []
-    for m in est.model.modules():
-        if isinstance(m, ConvStack) and m.fusable:
-            hooks.append(m.register_forward_pre_hook(
-                lambda m, a: stacks.append([m, a[0][rows].clone()])))
-            hooks.append(m.register_forward_hook(
-                lambda m, a, out: stacks[-1].append(out[rows].clone())))
+    for m in kernel_stacks(est.model, "conv7_layer"):
+        hooks.append(m.register_forward_pre_hook(
+            lambda m, a: stacks.append([m, a[0][rows].clone()])))
+        hooks.append(m.register_forward_hook(
+            lambda m, a, out: stacks[-1].append(out[rows].clone())))
     try:
         with torch.inference_mode():
             mels = est.features(batch, SR, hop)
@@ -2071,7 +2065,8 @@ def hold_sampled(name: str, est: KeyEstimator, served: dict, idx) -> dict:
             del mels
             res["stack_rel"] = res["stack_mean_rel"] = 0.0
             for m, x, out in stacks:
-                ref = CS.fused_convstack_plain(x, m.folded_layers()).float()
+                ref = m.kernel.plain(
+                    x, m.kernel.operands(m.conv_pairs())).float()
                 d = (out.float() - ref).abs()
                 rel = float(d.max() / ref.abs().max())
                 mean_rel = float(d.mean() / ref.abs().mean())
@@ -2172,10 +2167,9 @@ def serve_batch(name: str, seconds: int, rows, est: KeyEstimator,
                       plain.predict_waveforms([rows[i] for i in idx], SR,
                                               return_raw=True),
                       (len(idx), 12))
-    stack = [m for m in est.model.modules()
-             if isinstance(m, ConvStack) and m.fusable][0]
+    stack = kernel_stacks(est.model, "conv7_layer")[0]
     with torch.inference_mode():
-        layers = stack.folded_layers()
+        layers = stack.kernel.operands(stack.conv_pairs())
     times = kernel_times(s["batch"], layers,
                          1 + s["batch"].shape[1] // s["hop"])
     del layers
@@ -2837,8 +2831,8 @@ def check_validation(state, cfg: Config, val, device,
                      min_spread: float = 0.0) -> dict:
     """The trained state's validation through kernel C against the plain
     path (the same weights in a model with fused_convstack=False) on the
-    card: fused_layers C launches per batch (3, or 6 for the multi-scale
-    ensemble) and none on the plain path; per-song keys
+    card: stack_launches' C launches per batch (3, or 6 for the
+    multi-scale ensemble) and none on the plain path; per-song keys
     and tonics at the agreement bars (3e-2, tonic 3e-2 of its peak); the
     validation loss within loss_bar; songs whose MIREX categories differ
     named with their top-2 cosine margin and key |d|; evaluate's wall
@@ -2851,7 +2845,7 @@ def check_validation(state, cfg: Config, val, device,
     n_batches = -(-len(val) // cfg.batch_size)
     got, launches, _ = eval_outputs(state, cfg, val)
     ref, launches_plain, _ = eval_outputs(plain, plain_cfg, val)
-    per_batch = fused_layers(state.model)
+    per_batch = stack_launches(state.model, cfg.dtype)["conv7_layer"]
     if not per_batch or launches["conv7_layer"] != per_batch * n_batches \
             or launches_plain["conv7_layer"] != 0:
         raise AssertionError(f"validation launches {launches} (plain "
@@ -2997,9 +2991,9 @@ def run_train(roots: dict, td: str, device, cfg: Config,
     8 x acc_grad 8 = 64 songs a step; T = 601 in the 1024 bucket),
     fused_convstack on, 3 epochs with the epoch -1 evaluation, checkpoints
     in a run directory: features imported by KeyDataset through kernels A
-    and B (A 7, B 1 per group and CQT); Trainer.fit launching kernel C
-    fused_layers times per validation batch and never in a train step; one
-    step held against the CPU; the validation through kernel C held
+    and B (A 7, B 1 per group and CQT); Trainer.fit launching kernel C as
+    stack_launches counts it per validation batch and never in a train
+    step; one step held against the CPU; the validation through kernel C held
     against the plain path; one batch repeated for 10 steps (the loss must
     fall; step wall, peak memory, the step's device split); the best
     checkpoint served back through
@@ -3013,9 +3007,10 @@ def run_train(roots: dict, td: str, device, cfg: Config,
     (state, hist), fit_launches, fit_wall = counted(
         lambda: tr.fit(seed=0, eval_at_start=True))
     n_batches = -(-len(val) // cfg.batch_size)
-    per_batch = fused_layers(state.model)
+    per_eval = stack_launches(state.model, cfg.dtype)
+    per_batch = per_eval["conv7_layer"]
     want = {"cascade_pad": 0, "octave_response": 0,
-            "conv7_layer": per_batch * n_batches * len(hist), "resconv7": 0}
+            **{k: v * n_batches * len(hist) for k, v in per_eval.items()}}
     steps = cfg.epochs * (len(train) // (cfg.batch_size * cfg.acc_grad))
     if not per_batch or fit_launches != want or state.step != steps:
         raise AssertionError(f"fit: launches {fit_launches} (want {want}), "
@@ -3568,7 +3563,7 @@ def train_world2(train, val, cfg: Config, td: str, device) -> dict:
     eval_ok = all(abs(r["evaluate"][k] - v) <= 1e-5 + 1e-4 * abs(v)
                   for r in ranks for k, v in ref_eval.items())
     n_batches = -(-len(val) // cfg.batch_size)
-    per_batch = fused_layers(single.model)
+    per_batch = stack_launches(single.model, cfg.dtype)["conv7_layer"]
     launches_ok = all(r["eval_launches"] == ref_launches for r in ranks) \
         and ref_launches["conv7_layer"] == per_batch * n_batches
     if not (res["loss_rel"] <= 1e-5 and res["grad"]["ratio"] <= 1

@@ -4,10 +4,10 @@ model.
 The variants of the matrix (tests/torch_parity.py VARIANTS) whose stacks
 are ResBlocks: global mode with and without sequence lengths, local mode
 (with the genre head), the weights' conversion and the reference's
-`.conv2d.` naming; kernel C's gate refusing res and dense stacks; and the
-residual model at kernel 7 and the published widths with fused_convstack
-on, whose Pitch2Pitch stack takes the residual conv kernel's gate (its
-plain version on the CPU). Bars: rtol/atol 1e-4
+`.conv2d.` naming; kernel C never resolved for a res or dense stack; and
+the residual model at kernel 7 and the published widths with
+fused_convstack on, whose Pitch2Pitch stack resolves the residual conv
+kernel and runs it (its plain version on the CPU). Bars: rtol/atol 1e-4
 (tests/test_torch_port.py:258, :272).
 """
 
@@ -18,6 +18,7 @@ import torch
 
 from audio_key_estimation_torch.models.blocks import ConvStack
 from audio_key_estimation_torch.ops import resstack_cuda as RS
+from audio_key_estimation_torch.ops import stack_kernels as SK
 from audio_key_estimation_torch.utils.profiling import spans
 from torch_parity import (SMALL, assert_forward_matches,
                           assert_reference_loads, assert_state_dict_matches,
@@ -58,9 +59,9 @@ def test_block_stacks_refuse_kernel_c():
     for kw in (dict(resblock=True), dict(denseblock=True)):
         stack = ConvStack(5, 8, 7, 3, False, g, fused_serving=True,
                           **kw).eval()
-        assert not stack.fusable
-        assert not stack.use_fused(torch.zeros(1, 5, 12, 6))
-    assert ConvStack(5, 8, 7, 3, False, g, fused_serving=True).fusable
+        assert stack.kernel is not SK.CONV7
+    assert ConvStack(5, 8, 7, 3, False, g,
+                     fused_serving=True).kernel is SK.CONV7
 
 
 @functools.lru_cache(maxsize=None)
@@ -79,7 +80,7 @@ def test_the_residual_kernel_path_matches_flax(with_lengths):
     pair = res_kernel_pair()
     net = pair[3]
     p2p = net.model[1].p2p
-    assert p2p.res_kernel_fits and (p2p.cins[0], p2p.out_ch) == (5, 8)
+    assert p2p.kernel is SK.RESCONV7 and p2p.cins == [5, 8, 8]
     before = RS.resconv7.launches
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]):

@@ -22,6 +22,7 @@ from audio_key_estimation_tpu.ops import convstack_pallas as CP
 from audio_key_estimation_torch.models import PitchClassNet
 from audio_key_estimation_torch.models.blocks import ConvStack
 from audio_key_estimation_torch.ops import convstack_cuda as CS
+from audio_key_estimation_torch.ops import stack_kernels as SK
 
 
 def _rand_layers(rng, cins):
@@ -152,12 +153,14 @@ def _stack_module(**kw):
 ])
 def test_gate(case, kw, shape, fused):
     stack = _stack_module(**kw)
-    assert stack.use_fused(torch.zeros(shape)) is fused, case
+    assert (stack.kernel is SK.CONV7
+            and stack.runs_kernel(torch.zeros(shape))) is fused, case
 
 
 def test_gate_off_in_train_mode():
     stack = _stack_module().train()
-    assert stack.use_fused(torch.zeros(1, 5, 12, 6)) is False
+    assert stack.kernel is SK.CONV7
+    assert stack.runs_kernel(torch.zeros(1, 5, 12, 6)) is False
 
 
 def test_gate_output_matches_plain_stack(rng):
@@ -194,7 +197,8 @@ def test_model_fused_gate_matches_plain(rng):
                            .astype(np.float32))
     seq = torch.tensor([40, 33, 21], dtype=torch.int32)
     with torch.no_grad():
-        assert fused.model[1].p2p.use_fused(
+        assert fused.model[1].p2p.kernel is SK.CONV7
+        assert fused.model[1].p2p.runs_kernel(
             torch.zeros(3, 5, cfg.pitches, 40))
         kf, tf = fused(mel, seq)
         kp, tp = plain(mel, seq)

@@ -5,7 +5,9 @@ kernel 7 and 4 filters (so the layer-1 Pitch2Pitch stack has 8 outputs)
 with `fused_convstack` on: the kernel C launches of one eval forward of
 the port (its plain version on the CPU, counted per layer) equal the
 JAX package's gate (models/blocks.py:301-312, traced abstractly, without
-its TPU lane constraints) and the sum over the port's `fusable` stacks.
+its TPU lane constraints) and the sum over the port's stacks that
+resolve kernel C (`ConvStack.kernel`, ops/stack_kernels.py), each counted
+by the entry's own launches.
 Where the gate takes a stack, that stack (bf16 kernel numerics) is held
 against the flax ConvStack on the same weights and input at
 tests/test_convstack_pallas.py:101-103's bars, and the whole fused model
@@ -27,6 +29,7 @@ from audio_key_estimation_tpu.ops import convstack_pallas as CP
 from audio_key_estimation_torch.models import PitchClassNet
 from audio_key_estimation_torch.models.blocks import ConvStack
 from audio_key_estimation_torch.ops import convstack_cuda as CS
+from audio_key_estimation_torch.ops import stack_kernels as SK
 from torch_parity import VARIANTS
 
 BASE = dict(octaves=2, num_layers=2, conv_layers=3, n_filters=4,
@@ -97,9 +100,9 @@ def test_kernel_c_launches_follow_the_jax_gate(name, monkeypatch):
     cfg = _cfg(name)
     want = jax_gate_launches(cfg, monkeypatch)
     fused = _seeded(PitchClassNet(cfg), 1)
-    stacks = [m for m in fused.modules()
-              if isinstance(m, ConvStack) and m.fusable]
-    assert want == sum(len(s.cins) for s in stacks)
+    stacks = [m for m in fused.modules() if isinstance(m, ConvStack)
+              and m.kernel is SK.CONV7 and m.fused_serving]
+    assert want == sum(SK.CONV7.launches(s) for s in stacks)
 
     launched, inputs = [], []
     orig = CS.conv7_layer

@@ -220,6 +220,15 @@ def _imported_modules(path: str) -> set:
     return mods
 
 
+def _imported_names(path: str) -> set:
+    """The last part of every module an import statement of the file
+    names, and every name a `from` import takes: `from .ops.cqt_oracle
+    import f` and `from .ops import cqt_oracle` both give cqt_oracle."""
+    return {m.rsplit(".", 1)[-1] for m in _imported_modules(path)} | {
+        a.name for node in ast.walk(ast.parse(open(path).read()))
+        if isinstance(node, ast.ImportFrom) for a in node.names}
+
+
 def _port_sources() -> list:
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "tests", "torch_dp_workers.py")]
@@ -260,11 +269,8 @@ def test_product_modules_never_import_the_oracles():
     for path in sources:
         if path.endswith(("cqt_oracle.py", "librosa_ref.py")):
             continue
-        # `from .ops.cqt_oracle import f` and `from .ops import cqt_oracle`
-        names = {m.rsplit(".", 1)[-1] for m in _imported_modules(path)} | {
-            a.name for node in ast.walk(ast.parse(open(path).read()))
-            if isinstance(node, ast.ImportFrom) for a in node.names}
-        assert not ({"cqt_oracle", "librosa_ref"} & names), path
+        assert not ({"cqt_oracle", "librosa_ref"} & _imported_names(path)), \
+            path
     code = textwrap.dedent("""
         import json, sys
         from audio_key_estimation_torch import bench, predict
@@ -283,6 +289,28 @@ def test_product_modules_never_import_the_oracles():
     assert {"audio_key_estimation_torch.predict",
             "audio_key_estimation_torch.data.dataset"} <= mods
     assert not mods & set(ORACLES), mods & set(ORACLES)
+
+
+def test_one_module_owns_the_stack_kernels():
+    """ops/stack_kernels.py is the only module of the package that
+    imports both stack-kernel wrappers (convstack_cuda, resstack_cuda);
+    no module under models/ imports either, and neither wrapper imports
+    the other or stack_kernels."""
+    package = os.path.join(REPO, "audio_key_estimation_torch")
+    wrappers = {"convstack_cuda", "resstack_cuda"}
+    both = []
+    for path in _port_sources():
+        if not path.startswith(package):
+            continue
+        rel = os.path.relpath(path, package)
+        names = _imported_names(path)
+        if wrappers <= names:
+            both.append(rel)
+        if rel.startswith("models"):
+            assert not names & wrappers, rel
+        if rel in (os.path.join("ops", w + ".py") for w in wrappers):
+            assert not names & (wrappers | {"stack_kernels"}), rel
+    assert both == [os.path.join("ops", "stack_kernels.py")]
 
 
 def test_config_fields_and_defaults_equal():

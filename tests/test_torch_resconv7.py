@@ -5,9 +5,11 @@ Here every CPU tensor takes the kernel's plain version, which must equal
 the module path (models/blocks.py ResBlock: conv + bias, eval BatchNorm,
 the block's input added in its second conv, leaky-ReLU) in float32, conv
 by conv and for the whole stack, at small H and T, ragged against the
-kernel's 32-row, 64- or 32-position tiles. The ConvStack gate takes a
-stack only in eval mode, residual, non-equivariant, kernel 7, at the
-published widths, on float32 input with H, T >= 3; the akx.stack record
+kernel's 32-row, 64- or 32-position tiles. A ConvStack resolves the
+kernel (ConvStack.kernel, ops/stack_kernels.py) where it is residual,
+non-equivariant, kernel 7, at the published widths, and runs it only in
+eval mode on float32 input with H, T >= 3; each stack of every variant
+resolves at most one kernel; the akx.stack record
 of a stack built for the kernel keeps convs 7 and res_blocks 3 and
 carries hand_kernel, other stacks' records carry none; and the
 benchmark's reader of that count (res_stack_kernel_share) reads recorded
@@ -15,8 +17,10 @@ spans. The kernel itself is held on the card by
 tests/test_torch_resconv7_card.py and chip_smoke.py.
 """
 
+import copy
 import importlib.util
 import json
+import pickle
 from pathlib import Path
 
 import pytest
@@ -24,10 +28,13 @@ import torch
 
 from audio_key_estimation_torch.config import Config
 from audio_key_estimation_torch.models import PitchClassNet, build_model
-from audio_key_estimation_torch.models.blocks import ConvStack, leaky_relu
+from audio_key_estimation_torch.models.blocks import (CircularConv,
+                                                      ConvStack, leaky_relu)
 from audio_key_estimation_torch.ops import convstack_cuda as CS
 from audio_key_estimation_torch.ops import resstack_cuda as RS
+from audio_key_estimation_torch.ops import stack_kernels as SK
 from audio_key_estimation_torch.utils.profiling import Span, spans
+from torch_parity import VARIANTS
 
 REPO = Path(__file__).resolve().parent.parent
 
@@ -94,14 +101,15 @@ def test_the_gated_stack_equals_the_module_path(geometry):
     B, H, T = geometry
     stack = residual_stack(3)
     x = torch.randn(B, 5, H, T, generator=torch.Generator().manual_seed(4))
-    assert stack.use_res_kernel(x)
+    assert stack.kernel is SK.RESCONV7 and stack.runs_kernel(x)
     before = RS.resconv7.launches
     with torch.no_grad():
         got = stack(x)
         want = x
         for m in stack.layer:
             want = m(want)
-        plain = RS.residual_stack_plain(x, stack.res_convs())
+        plain = RS.residual_stack_plain(
+            x, stack.kernel.operands(stack.conv_pairs()))
     assert RS.resconv7.launches == before     # the CPU runs no kernel
     torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     assert torch.equal(got, plain)
@@ -139,9 +147,41 @@ def test_the_gate(name):
     args.update(kw)
     stack = ConvStack(generator=torch.Generator().manual_seed(0), **args)
     stack.train(not eval_mode)
-    assert stack.use_res_kernel(x) is want
-    # a separate path: kernel C never takes a residual stack
-    assert not (stack.use_res_kernel(x) and stack.use_fused(x))
+    assert (stack.kernel is SK.RESCONV7 and stack.runs_kernel(x)) is want
+
+
+# the layer-1 Pitch2Pitch stack's kernel for each variant of the matrix
+# at kernel 7 and 4 filters (tests/test_torch_gate.py's widths), and for
+# the published resblock model at the default Config; no other stack
+# resolves one
+RESOLVED = {"default": "conv7_layer", "resblock": "resconv7",
+            "denseblock": None, "p2pc_conv": "conv7_layer",
+            "pc2p_mem": "conv7_layer", "stay_sixth": "conv7_layer",
+            "only_semitones": "conv7_layer", "max_pool": "conv7_layer",
+            "three_layers": "conv7_layer", "resblock_pc2p_mem": None,
+            "dense_p2pc_conv": None, "resblock published": "resconv7"}
+
+
+@pytest.mark.parametrize("name", sorted(RESOLVED))
+def test_each_stack_resolves_at_most_one_kernel(name):
+    """Kernel C for a plain stack at its geometry, resconv7 for a
+    residual one whose stem is 5 -> 8, none for a dense stack, a
+    residual stem 1 -> 8 or a pitch-class stack; a model's copies keep
+    the same entries."""
+    assert set(RESOLVED) == {*VARIANTS, "resblock published"}
+    kw = dict(resblock=True) if name == "resblock published" else {
+        **dict(octaves=2, num_layers=2, conv_layers=3, n_filters=4,
+               kernel_size=7, head_layers=2), **VARIANTS[name]}
+    model = build_model(Config(fused_convstack=True, **kw))
+    stacks = [m for m in model.modules() if isinstance(m, ConvStack)]
+    assert stacks[1] is model.model[1].p2p
+    assert [s.kernel for s in stacks] == [
+        n and SK.named(n)
+        for n in [None, RESOLVED[name]] + [None] * (len(stacks) - 2)]
+    # replicas (deep copies) and pickles share the entries
+    for twin in (copy.deepcopy(model), pickle.loads(pickle.dumps(model))):
+        assert all(a.kernel is b.kernel for a, b in zip(
+            stacks, (m for m in twin.modules() if isinstance(m, ConvStack))))
 
 
 def _benchmark_config(name: str) -> Config:
@@ -159,11 +199,12 @@ def test_the_gate_in_the_benchmarks_configurations(name):
     model = build_model(cfg).eval()
     stacks = [m for m in model.modules() if isinstance(m, ConvStack)]
     x = torch.zeros(1, 5, 288, 20)
-    taken = [s.use_res_kernel(x) for s in stacks]
-    want = [cfg.resblock and not s.equivariant for s in stacks]
+    taken = [s.kernel is SK.RESCONV7 and s.runs_kernel(x) for s in stacks]
+    want = [cfg.resblock and isinstance(s.layer[0], CircularConv)
+            for s in stacks]
     assert taken == want and (name == "pcn_resblock") == any(taken)
     model.train()
-    assert not any(s.use_res_kernel(x) for s in stacks)
+    assert not any(s.runs_kernel(x) for s in stacks)
 
 
 def profiled():
@@ -297,9 +338,11 @@ def test_the_kernel_share_is_declared_for_the_residual_cell():
 # ---------------------------------------------------------------------------
 
 def test_supported_widths():
-    assert RS.supported(5, 8)
-    assert not any(RS.supported(c, f) for c, f in ((4, 8), (5, 4), (5, 16),
-                                                   (8, 8)))
+    def built_for(c, f):
+        return SK.RESCONV7.built_for("residual", False, 7, [c], f)
+    assert built_for(5, 8)
+    assert not any(built_for(c, f) for c, f in ((4, 8), (5, 4), (5, 16),
+                                                (8, 8)))
 
 
 # demangled device rows as the profiler names them: kernel C's, and

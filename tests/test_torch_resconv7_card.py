@@ -25,6 +25,7 @@ from audio_key_estimation_torch.models import PitchClassNet
 from audio_key_estimation_torch.models.blocks import ConvStack
 from audio_key_estimation_torch.ops import convstack_cuda as CS
 from audio_key_estimation_torch.ops import resstack_cuda as RS
+from audio_key_estimation_torch.ops import stack_kernels as SK
 from audio_key_estimation_torch.utils.precision import ieee_float32
 
 pytestmark = pytest.mark.card
@@ -84,12 +85,13 @@ def test_a_stack_is_seven_launches_and_no_kernel_c(card):
     stack = ConvStack(5, 8, 7, 3, False, torch.Generator().manual_seed(1),
                       fused_serving=True, resblock=True).eval().to(card)
     x = torch.randn(4, 5, 288, 901, device=card)
-    assert stack.use_res_kernel(x)
+    assert stack.kernel is SK.RESCONV7 and stack.runs_kernel(x)
     n, c = RS.resconv7.launches, CS.conv7_layer.launches
     with torch.inference_mode():
         got = stack(x)
         with ieee_float32():
-            want = RS.residual_stack_plain(x, stack.res_convs())
+            want = RS.residual_stack_plain(
+                x, stack.kernel.operands(stack.conv_pairs()))
     assert RS.resconv7.launches == n + 7
     assert CS.conv7_layer.launches == c
     check(got, want)

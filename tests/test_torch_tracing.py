@@ -37,6 +37,7 @@ from audio_key_estimation_torch.data.pipeline import prefetch
 from audio_key_estimation_torch.models import build_model
 from audio_key_estimation_torch.models.blocks import ConvStack
 from audio_key_estimation_torch.ops import convstack_cuda as CS
+from audio_key_estimation_torch.ops import stack_kernels as SK
 from audio_key_estimation_torch.predict import KeyEstimator
 from audio_key_estimation_torch.train import trainer
 from audio_key_estimation_torch.utils import profiling
@@ -236,7 +237,7 @@ def test_the_fused_stack_is_one_span(monkeypatch):
     g = torch.Generator().manual_seed(0)
     stack = ConvStack(5, 8, 7, 3, False, g, fused_serving=True).eval()
     x = torch.randn(1, 5, 12, 6)
-    assert stack.use_fused(x)
+    assert stack.kernel is SK.CONV7 and stack.runs_kernel(x)
     calls = []
     fused = CS.fused_convstack
     monkeypatch.setattr(CS, "fused_convstack",
