@@ -49,6 +49,10 @@ int akt_octave_response_stage(const void* buf, int in_dtype,
 int akt_conv7(const void* x, int in_nchw, int in_dtype, int cin,
               const void* w_packed, const float* bias, void* y, int out_nchw,
               int out_dtype, int batch, int H, int T, void* stream);
+int akt_pcconv(const float* x, const float* w, const float* bias,
+               const float* scale, const float* shift, const float* skip,
+               float* y, int cin, int cout, int batch, int H, int T,
+               void* stream);
 int akt_resconv7(const float* x, const float* w, const float* bias,
                  const float* scale, const float* shift, const float* skip,
                  float* y, int cin, int cout, int batch, int H, int T,
@@ -207,6 +211,31 @@ at::Tensor resconv7(const at::Tensor& x, const at::Tensor& w,
   return y;
 }
 
+// x (B, cin, 12, T), w (cin, 7, 12, cout); the output (B, cout, 12, T),
+// all float32 NCHW; skip (B, cout, 12, T) for a residual block's second
+// conv.
+at::Tensor pcconv(const at::Tensor& x, const at::Tensor& w,
+                  const at::Tensor& bias, const at::Tensor& scale,
+                  const at::Tensor& shift,
+                  const std::optional<at::Tensor>& skip) {
+  same_device(x, {&w, &bias, &scale, &shift}, "akt::pcconv");
+  if (skip) same_device(x, {&*skip}, "akt::pcconv");
+  TORCH_CHECK(x.dim() == 4 && w.dim() == 4,
+              "akt::pcconv: x and w must be 4-d, got ", x.sizes(), ", ",
+              w.sizes());
+  const c10::cuda::CUDAGuard guard(x.device());
+  at::Tensor y = at::empty({x.size(0), w.size(3), x.size(2), x.size(3)},
+                           x.options());
+  check_rc(akt_pcconv(x.data_ptr<float>(), w.data_ptr<float>(),
+                      bias.data_ptr<float>(), scale.data_ptr<float>(),
+                      shift.data_ptr<float>(),
+                      skip ? skip->data_ptr<float>() : nullptr,
+                      y.data_ptr<float>(), x.size(1), w.size(3), x.size(0),
+                      x.size(2), x.size(3), stream()),
+           "pcconv (pitch-class stack conv)");
+  return y;
+}
+
 at::Tensor window_copy(const at::Tensor& x, const at::Tensor& starts,
                        int64_t tile_t, int64_t win, int64_t chunk,
                        int64_t variant, int64_t static_stride) {
@@ -273,6 +302,8 @@ TORCH_LIBRARY(akt, m) {
         "ScalarType? nchw_out) -> Tensor");
   m.def("resconv7(Tensor x, Tensor w, Tensor bias, Tensor scale, "
         "Tensor shift, Tensor? skip) -> Tensor");
+  m.def("pcconv(Tensor x, Tensor w, Tensor bias, Tensor scale, "
+        "Tensor shift, Tensor? skip) -> Tensor");
   m.def("window_copy(Tensor x, Tensor starts, int tile_t, int win, "
         "int chunk, int variant, int static_stride) -> Tensor");
   m.def("transpose_pad(Tensor y, int half, int lfull, int run_rows, "
@@ -287,6 +318,7 @@ TORCH_LIBRARY_IMPL(akt, CUDA, m) {
   m.impl("octave_response_stage", &octave_response_stage);
   m.impl("conv7", &conv7);
   m.impl("resconv7", &resconv7);
+  m.impl("pcconv", &pcconv);
   m.impl("window_copy", &window_copy);
   m.impl("transpose_pad", &transpose_pad);
   m.impl("launch_probe", &launch_probe);

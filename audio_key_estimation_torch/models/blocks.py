@@ -334,15 +334,17 @@ class ConvStack(nn.Module):
     ResBlocks from 3; with denseblock one DenseBlock at 0. `kernel` is
     the hand kernel built for the stack's structure (ops/stack_kernels.py:
     kernel C for a plain Pitch2Pitch stack at its geometry, resconv7 for
-    a residual one at the published widths), or None; forward runs it
-    where `runs_kernel` says.
+    a residual one at the published widths, pcconv for a plain or
+    residual pitch-class stack at the published widths), or None;
+    forward runs it where `runs_kernel` says.
 
     Each forward is one `akx.stack` span, kernel or not, whose record
     carries `convs` (the convolutions the stack runs: conv_layers plain,
     a stem and two a block residual, two a layer dense) and `res_blocks`;
-    a stack whose kernel is `recorded` (resconv7) also carries
-    `hand_kernel`: 1 where forward ran it (the kernel on a card, its
-    plain version on the CPU), else 0.
+    a stack whose kernel is `recorded` also carries that count
+    (`hand_kernel` for resconv7, `pc_kernel` for pcconv): 1 where
+    forward ran it (the kernel on a card, its plain version on the CPU),
+    else 0.
     """
 
     def __init__(self, in_ch, out_ch, kernel_size, conv_layers, equivariant,
@@ -406,7 +408,7 @@ class ConvStack(nn.Module):
         k, take = self.kernel, self.runs_kernel(x)
         counts = self.span_counts
         if k is not None and k.recorded:
-            counts = {**counts, "hand_kernel": int(take)}
+            counts = {**counts, k.recorded: int(take)}
         with span("akx.stack", tally=False, **counts):
             if take:
                 return k.run(x, k.operands(self.conv_pairs()))

@@ -8,6 +8,7 @@ from __future__ import annotations
 from typing import Callable, NamedTuple
 
 from . import convstack_cuda as CS
+from . import pcstack_cuda as PS
 from . import resstack_cuda as RS
 
 
@@ -20,7 +21,7 @@ class StackKernel(NamedTuple):
     run: Callable        # (x, operands) -> y: the kernel (plain on the CPU)
     plain: Callable      # (x, operands) -> y: its plain version
     launches: Callable   # ConvStack -> launches of one forward
-    recorded: bool       # akx.stack carries hand_kernel where it is built
+    recorded: str | None  # the count akx.stack carries where it is built
 
     def __reduce__(self):   # a model's copies and pickles share the entry
         return named, (self.name,)
@@ -39,7 +40,7 @@ CONV7 = StackKernel(
                    for c, b in pairs],
     lambda x, ops: CS.fused_convstack(x, ops),
     lambda x, ops: CS.fused_convstack_plain(x, ops),
-    lambda stack: len(stack.cins), False)
+    lambda stack: len(stack.cins), None)
 
 # resconv7, one launch a conv: a residual stack of stem cin -> f and
 # blocks f -> 2f -> f at widths the kernel is built for
@@ -54,9 +55,30 @@ RESCONV7 = StackKernel(
     lambda pairs: [RS.operands(c, b) for c, b in pairs],
     lambda x, ops: RS.residual_stack(x, ops),
     lambda x, ops: RS.residual_stack_plain(x, ops),
-    lambda stack: stack.span_counts["convs"], True)
+    lambda stack: stack.span_counts["convs"], "hand_kernel")
 
-KERNELS = (CONV7, RESCONV7)
+
+def _pc_widths(kind, cins, out):
+    if kind == "plain":
+        return [(ci, out, False) for ci in cins]
+    return [(cins[0], out, False), (out, 2 * out, False),
+            (2 * out, out, True)]
+
+
+# pcconv, one launch a conv: an equivariant pitch-class stack, plain or
+# residual, whose every conv has widths the kernel is built for
+PCCONV = StackKernel(
+    "pcconv", PS.pcconv,
+    lambda kind, equivariant, k, cins, out: (
+        kind in ("plain", "residual") and equivariant and k == PS.KERNEL
+        and all(c in PS.CONVS for c in _pc_widths(kind, cins, out))),
+    PS.STACK_DTYPES,
+    lambda pairs: [PS.operands(c, b) for c, b in pairs],
+    lambda x, ops: PS.pc_stack(x, ops),
+    lambda x, ops: PS.pc_stack_plain(x, ops),
+    lambda stack: stack.span_counts["convs"], "pc_kernel")
+
+KERNELS = (CONV7, RESCONV7, PCCONV)
 
 
 def named(name: str) -> StackKernel:

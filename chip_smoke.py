@@ -216,6 +216,7 @@ from audio_key_estimation_torch.ops.librosa_ref import librosa_cqt
 from audio_key_estimation_torch.ops.frontend import (compute_cqt,
                                                      feature_bins,
                                                      torch_dtype)
+from audio_key_estimation_torch.ops import pcstack_cuda as PS
 from audio_key_estimation_torch.ops import probes_cuda as PC
 from audio_key_estimation_torch.ops import resstack_cuda as RS
 from audio_key_estimation_torch.ops import stack_kernels as SK
@@ -745,10 +746,10 @@ def conv_library(plain_inputs, wp, bias) -> dict:
 
 RES_SHAPE = (256, 288, 901)   # resblock.resident: B, H, T at 180 s
 RES_MAX_ABS, RES_MEAN_ABS = 1e-4, 1e-6  # tests/test_torch_resconv7_card.py
-# a served residual stack against the plain stack, as shares of the plain
-# stack's largest and mean magnitude: float32 sums of seven convs in two
-# orders
-RES_STACK_MAX_REL, RES_STACK_MEAN_REL = 1e-4, 1e-5
+# a served stack of a whole-stack kernel (resconv7, pcconv) against its
+# plain stack, as shares of the plain stack's largest and mean magnitude:
+# float32 sums of three to seven convs in two orders
+STACK_MAX_REL, STACK_MEAN_REL = 1e-4, 1e-5
 
 
 @ieee_float32()
@@ -762,7 +763,7 @@ def check_res_kernel(device) -> dict:
     BatchNorm, skip or leaky-ReLU) on the input circularly pre-padded
     (library_ms: a yardstick the port never calls). A stack summed from
     them: its 7 convs. The served stacks' launches and outputs are held in
-    phase 4 (expected_launches, hold_res_stack)."""
+    phase 4 (expected_launches, hold_whole_stack)."""
     from benchmark.yardstick import resstack
     B, H, T = RES_SHAPE
     g = torch.Generator(device=device).manual_seed(22)
@@ -817,6 +818,79 @@ def check_res_kernel(device) -> dict:
         f"({res['R_bound_ms'] / res['R_card_ms']:.1%}), plain "
         f"{res['R_plain_ms']:.1f} ms, cuDNN's convs alone "
         f"{res['R_library_ms']:.1f} ms")
+    return res
+
+
+PC_SHAPE = (256, 901)   # the resident cells: B, T at 180 s (H is 12)
+PC_MAX_ABS, PC_MEAN_ABS = 1e-4, 1e-6  # tests/test_torch_pcstack_card.py
+# the convs of a call's two pitch-class stacks: pcn_default's (plain) and
+# pcn_resblock's (residual)
+PC_CALLS = {"default": ["1->4", "4->4", "4->4", "12->16", "16->16",
+                        "16->16"],
+            "resblock": ["1->4"] + ["4->8", "8->4 +skip"] * 3
+            + ["12->16"] + ["16->32", "32->16 +skip"] * 3}
+
+
+@ieee_float32()
+def check_pc_kernel(device) -> dict:
+    """The pitch-class stacks' conv kernel (csrc/pcconv.cu) at the
+    resident cells' shape, each of its convs (pcstack_cuda.CONVS): against
+    its plain version in IEEE float32 (cuDNN, TF32 off for this call), its
+    time beside its float32 bound (benchmark/yardstick/resstack.conv_bound)
+    and the plain version's time (the wrap's concatenation, cuDNN's conv
+    over the 23 rows, the epilogue's passes: the module path's work). The
+    two stacks of a default and of a resblock call summed from them
+    (PC_CALLS). The served stacks' launches and outputs are held in phase
+    4 (expected_launches, hold_whole_stack)."""
+    from benchmark.yardstick import resstack
+    B, T = PC_SHAPE
+    g = torch.Generator(device=device).manual_seed(24)
+    convs, err = {}, 0.0
+    for cin, cout, skip in PS.CONVS:
+        x = torch.randn(B, cin, 12, T, device=device, generator=g)
+        sk = torch.randn(B, cout, 12, T, device=device, generator=g) \
+            if skip else None
+        bnd = 1.0 / (cin * 84) ** 0.5
+        c = PS.Conv(
+            (torch.rand(cin, 7, 12, cout, device=device, generator=g) * 2
+             - 1) * bnd,
+            (torch.rand(cout, device=device, generator=g) * 2 - 1) * bnd,
+            1 + 0.2 * torch.randn(cout, device=device, generator=g),
+            0.1 * torch.randn(cout, device=device, generator=g))
+        d = (PS.pcconv(x, c, sk) - PS.pcconv_plain(x, c, sk)).abs()
+        r = {"max_abs_err": float(d.max()), "mean_abs_err": float(d.mean())}
+        del d
+        if r["max_abs_err"] > PC_MAX_ABS or r["mean_abs_err"] > PC_MEAN_ABS:
+            raise AssertionError(f"pcconv {cin}->{cout}: {r}")
+        err = max(err, r["max_abs_err"])
+        b = resstack.conv_bound(B, 12, T, cin, cout, 12, 7,
+                                skip=cout if skip else 0)
+        r.update(bound_ms=b["bound_s"] * 1e3, bound_by=b["bound_by"],
+                 ms=time_ms(lambda: PS.pcconv(x, c, sk), reps=5),
+                 card_ms=graph_ms(lambda: PS.pcconv(x, c, sk), reps=5,
+                                  repeat=2),
+                 plain_ms=time_ms(lambda: PS.pcconv_plain(x, c, sk),
+                                  reps=5))
+        del x, sk
+        key = f"{cin}->{cout}" + (" +skip" if skip else "")
+        convs[key] = r
+        log(f"[3 kernels] pcconv {key} at {(B, cin, 12, T)}: max|d| "
+            f"{r['max_abs_err']:.3g} mean {r['mean_abs_err']:.3g} against "
+            f"plain (IEEE); {r['ms']:.3f} ms eager, {r['card_ms']:.3f} on "
+            f"the card, bound {r['bound_ms']:.3f} ms ({r['bound_by']}, "
+            f"{r['bound_ms'] / r['card_ms']:.1%}); plain (wrap, cuDNN, "
+            f"epilogue) {r['plain_ms']:.3f} ms")
+    torch.cuda.empty_cache()
+    res = {"P": err, "P_convs": convs}
+    for call, keys in PC_CALLS.items():
+        for key in ("ms", "card_ms", "plain_ms", "bound_ms"):
+            res[f"P_{call}_{key}"] = sum(convs[k][key] for k in keys)
+        log(f"[3 kernels] pcconv, a {call} call's two pitch-class stacks "
+            f"({len(keys)} convs) summed at B {B}, T {T}: "
+            f"{res[f'P_{call}_card_ms']:.2f} ms on the card against their "
+            f"bound {res[f'P_{call}_bound_ms']:.2f} ms "
+            f"({res[f'P_{call}_bound_ms'] / res[f'P_{call}_card_ms']:.1%}), "
+            f"plain {res[f'P_{call}_plain_ms']:.1f} ms")
     return res
 
 
@@ -1302,7 +1376,7 @@ def kernel_stacks(model: torch.nn.Module, name: str | None = None) -> list:
 def stack_launches(model: torch.nn.Module, dtype) -> dict:
     """Launches of each stack kernel one eval forward of `model` in
     `dtype` makes: each stack's kernel's own count (C once per layer,
-    resconv7 once per conv) where the kernel takes the dtype."""
+    resconv7 and pcconv once per conv) where the kernel takes the dtype."""
     return {k.name: sum(k.launches(m) for m in kernel_stacks(model, k.name)
                         if torch_dtype(dtype) in k.dtypes)
             for k in SK.KERNELS}
@@ -1340,14 +1414,16 @@ def served(est: KeyEstimator, fn):
     """counted(fn), recording what the served batch gave the kernels:
     each est.features call's (batch, sr, hop) and log-CQTs (kernels A and
     B; two for the multi-scale ensemble; one call per shard of the mesh),
-    and the input of every ConvStack with a hand kernel (kernel_stacks),
-    in every tower and every replica.
+    and the input of every ConvStack with a hand kernel (kernel_stacks)
+    that takes the model's dtype, in every tower and every replica.
     Returns (result, launches, wall seconds, features, stacks)."""
     feats, stacks = [], []
     nets = [*est.replicas, *est.local_replicas]
+    dtype = torch_dtype(est.cfg.dtype)
     hooks = [m.register_forward_pre_hook(
         lambda m, args: stacks.append((m, args[0])))
-        for net in nets for m in kernel_stacks(net)]
+        for net in nets for m in kernel_stacks(net)
+        if dtype in m.kernel.dtypes]
     features = est.features
 
     def recording(batch, sr, hop):
@@ -1371,13 +1447,15 @@ def hold_served(name: str, est: KeyEstimator, feats, stacks) -> dict:
     feature_bins entry) against the plain cqt at its own bins/octave at
     check_cqt's bars, every stack kernel C took, in every tower, layer
     by layer at check_conv7's bars (check_stack), and every stack resconv7
-    took, whole, against residual_stack_plain (hold_res_stack). The plain
-    versions in IEEE float32, as the served path computes float32."""
+    or pcconv took, whole, against the entry's plain stack
+    (hold_whole_stack). The plain versions in IEEE float32, as the served
+    path computes float32."""
     cfg = est.cfg
     sd = torch_dtype(cfg.cqt_conv_dtype)
     res = {"cqt_d": 0.0, "cqt_bins": [], "stacks": [], "c_d": 0.0,
-           "beyond_1ulp": 0, "stack_rel": 0.0, "resconv7_stacks": [],
-           "r_rel": 0.0}
+           "beyond_1ulp": 0, "stack_rel": 0.0,
+           "whole": {k.name: {"stacks": [], "rel": 0.0}
+                     for k in SK.KERNELS if k is not SK.CONV7}}
     if not feats:
         raise AssertionError(f"{name}: the served batch ran no CQT")
     with torch.inference_mode():
@@ -1397,9 +1475,10 @@ def hold_served(name: str, est: KeyEstimator, feats, stacks) -> dict:
                 raise AssertionError(f"{name}: {m.kernel.name}'s gate "
                                      f"refused a stack at {tuple(x.shape)} "
                                      f"{x.dtype}")
-            if m.kernel.name == "resconv7":
-                res["r_rel"] = max(res["r_rel"], hold_res_stack(name, m, x))
-                res["resconv7_stacks"].append(f"{tuple(x.shape)}")
+            if m.kernel is not SK.CONV7:
+                w = res["whole"][m.kernel.name]
+                w["rel"] = max(w["rel"], hold_whole_stack(name, m, x))
+                w["stacks"].append(f"{tuple(x.shape)}")
                 continue
             s = check_stack(f"{name}: served stack {tuple(x.shape)} "
                             f"{x.dtype}", x,
@@ -1412,23 +1491,25 @@ def hold_served(name: str, est: KeyEstimator, feats, stacks) -> dict:
     return res
 
 
-def hold_res_stack(name: str, m: ConvStack, x: torch.Tensor) -> float:
-    """One served resconv7 stack again on its own input, 7 launches,
-    against the plain stack: max |d| within RES_STACK_MAX_REL of the
-    plain stack's largest magnitude, mean |d| within RES_STACK_MEAN_REL of
-    its mean magnitude. Returns the max |d| over the largest."""
-    convs = m.kernel.operands(m.conv_pairs())
-    n = RS.resconv7.launches
-    got = RS.residual_stack(x, convs)
-    if RS.resconv7.launches != n + m.kernel.launches(m):
-        raise AssertionError(f"{name}: a resconv7 stack launched "
-                             f"{RS.resconv7.launches - n} times")
-    ref = RS.residual_stack_plain(x, convs)
+def hold_whole_stack(name: str, m: ConvStack, x: torch.Tensor) -> float:
+    """One served stack of a whole-stack kernel (resconv7, pcconv) again on
+    its own input, one launch a conv, against the entry's plain stack:
+    max |d| within STACK_MAX_REL of the plain stack's largest magnitude,
+    mean |d| within STACK_MEAN_REL of its mean magnitude. Returns the max
+    |d| over the largest."""
+    k = m.kernel
+    convs = k.operands(m.conv_pairs())
+    n = k.counter.launches
+    got = k.run(x, convs)
+    if k.counter.launches != n + k.launches(m):
+        raise AssertionError(f"{name}: a {k.name} stack launched "
+                             f"{k.counter.launches - n} times")
+    ref = k.plain(x, convs)
     d = (got - ref).abs()
     rel = float(d.max() / ref.abs().max())
     mean_rel = float(d.mean() / ref.abs().mean())
-    if not (rel <= RES_STACK_MAX_REL and mean_rel <= RES_STACK_MEAN_REL):
-        raise AssertionError(f"{name}: served resconv7 stack "
+    if not (rel <= STACK_MAX_REL and mean_rel <= STACK_MEAN_REL):
+        raise AssertionError(f"{name}: served {k.name} stack "
                              f"{tuple(x.shape)} max rel {rel:.3g}, mean rel "
                              f"{mean_rel:.3g}")
     return rel
@@ -1477,9 +1558,9 @@ def held_text(name: str, h: dict) -> str:
             f"{h['c_d']:.3g}, {h['beyond_1ulp']} elements beyond 1 bf16 ulp "
             f"(within the float32 sum bound), stack max rel "
             f"{h['stack_rel']:.3g}"
-            + (f"; resconv7 stacks [{', '.join(h['resconv7_stacks'])}] "
-               f"whole, max |d| {h['r_rel']:.3g} of the plain stack's "
-               f"largest" if h["resconv7_stacks"] else ""))
+            + "".join(f"; {k} stacks [{', '.join(w['stacks'])}] whole, max "
+                      f"|d| {w['rel']:.3g} of the plain stack's largest"
+                      for k, w in h["whole"].items() if w["stacks"]))
 
 
 def serve_variants(paths, device) -> dict:
@@ -1524,7 +1605,7 @@ def serve_variants(paths, device) -> dict:
                      "split": split, "held": held}
         log(f"[4 serve] variant {name}: launches A {launches['cascade_pad']}"
             f" B {launches['octave_response']} C {launches['conv7_layer']} "
-            f"resconv7 {launches['resconv7']}; "
+            f"resconv7 {launches['resconv7']} pcconv {launches['pcconv']}; "
             f"{agreement_text(agree)}; key |d| vs CPU {dcpu:.3g}; e.g. "
             f"{preds[0].key!r} / plain {ref[0].key!r}; wall "
             f"{wall * 1e3:.1f} ms = {audio_min / wall:.1f} audio-min/s "
@@ -4062,9 +4143,11 @@ def run_converge(device) -> dict:
     groups = -(-r["train"] // 16) + -(-r["val"] // 16)
     val_batches = -(-r["val"] // cfg.batch_size)
     steps = (len(hist) - 1) * (r["train"] // cfg.batch_size)
+    per_eval = stack_launches(build_model(cfg), cfg.dtype)
     want = {"cqt": [[cfg.octaves - 1, 1]] * groups,
-            "eval": [[0, 0, 3, 0]] * (val_batches * len(hist)),
-            "train": [[0, 0, 0, 0]] * steps}
+            "eval": [[0, 0, *(per_eval[k.name] for k in SK.KERNELS)]]
+            * (val_batches * len(hist)),
+            "train": [[0] * len(COUNTERS)] * steps}
     if (r["train"], r["val"]) != (240, 48) or calls != want:
         raise AssertionError(f"converge: {r['train']} + {r['val']} songs, "
                              f"launches per call {calls} (want {want})")
@@ -4111,8 +4194,8 @@ def main() -> int:
     ops = _build.registered_ops()
     for schema in ops:
         log(f"[2 build]   {schema}")
-    if len(ops) != 9:
-        raise AssertionError(f"expected 9 akt operators, found {len(ops)}")
+    if len(ops) != 10:
+        raise AssertionError(f"expected 10 akt operators, found {len(ops)}")
     for line in so.with_suffix(".log").read_text().splitlines():
         if "entry function" in line or "registers" in line or "spill" in line:
             log(f"[2 build]   {line.strip()}")
@@ -4129,6 +4212,7 @@ def main() -> int:
     res = check_cqt_kernels(y, p)
     res.update(check_conv_kernel(device))
     res.update(check_res_kernel(device))
+    res.update(check_pc_kernel(device))
     del y
     check_edge_geometries(device)
     oracle = run_oracle(waves, device)
@@ -4306,7 +4390,22 @@ def main() -> int:
             library="F.conv2d f32 (IEEE) on the circularly pre-padded "
                     "input, the conv alone, 7 calls",
             convs=res["R_convs"], launches_by_path=by_path["resconv7"],
-            served_max_rel_err=max(h["r_rel"] for h in held)),
+            served_max_rel_err=max(h["whole"]["resconv7"]["rel"]
+                                   for h in held)),
+        row("pcconv (the equivariant pitch-class stacks, a launch a conv; "
+            "ms, plain and bound summed over a default call's two stacks "
+            "at (256, cin, 12, 901))", "pcconv.cu",
+            "none: XLA conv in the JAX package", n["pcconv"], res["P"],
+            res["P_default_ms"], res["P_default_plain_ms"],
+            {"bound_ms": res["P_default_bound_ms"],
+             "bound_by": "operations"}, None,
+            card_ms=res["P_default_card_ms"],
+            resblock_card_ms=res["P_resblock_card_ms"],
+            resblock_bound_ms=res["P_resblock_bound_ms"],
+            resblock_plain_ms=res["P_resblock_plain_ms"],
+            convs=res["P_convs"], launches_by_path=by_path["pcconv"],
+            served_max_rel_err=max(h["whole"]["pcconv"]["rel"]
+                                   for h in held)),
         row("window_copy (#5, six variants; ms summed)",
             "probe_window_copy.cu", "scripts/probe_dma_rate.py:57",
             m["window_copy"], 0.0, probe["window"]["ms"],

@@ -29,6 +29,7 @@ import torch.utils.cpp_extension
 from audio_key_estimation_torch.ops import _build
 from audio_key_estimation_torch.ops import convstack_cuda as CS
 from audio_key_estimation_torch.ops import cqt_cuda as K
+from audio_key_estimation_torch.ops import pcstack_cuda as PS
 from audio_key_estimation_torch.ops import probes_cuda as PC
 from audio_key_estimation_torch.ops import resstack_cuda as RS
 from audio_key_estimation_torch.scripts import probe_pallas_overhead
@@ -180,7 +181,7 @@ def wrapper_calls() -> dict:
 
 OPS = ("cascade_pad", "octave_response", "octave_response_stage", "conv7",
        "window_copy", "transpose_pad", "launch_probe", "probe_primitive",
-       "resconv7")
+       "resconv7", "pcconv")
 
 
 def test_wrappers_call_every_defined_operator():
@@ -257,6 +258,9 @@ WRAPPERS = {   # wrapper, its plain version's name in its module, arguments
     "resconv7": (RS, "resconv7", "resconv7_plain", lambda: (
         _meta(1, 5, 8, 8), RS.Conv(_meta(5, 7, 7, 8), _meta(8), _meta(8),
                                    _meta(8)))),
+    "pcconv": (PS, "pcconv", "pcconv_plain", lambda: (
+        _meta(1, 4, 12, 8), PS.Conv(_meta(4, 7, 12, 8), _meta(8), _meta(8),
+                                    _meta(8)))),
     "window_copy": (PC, "window_copy", "window_copy_plain", lambda: (
         _stream16(), _starts(), "dma3", 8, 528)),
     "transpose_pad": (PC, "transpose_pad", "transpose_pad_plain",

@@ -144,6 +144,14 @@ def test_kernel_c_launches_follow_the_jax_gate(name, monkeypatch):
     assert float(rel) < 3e-2, rel
 
 
+# pcconv launches a served batch makes at the default widths where they
+# are not 6 (two plain stacks of three convs): residual stacks are a stem
+# and three blocks, three_layers' stacks one conv each and its layer-2
+# stack (48 -> 64) too wide, dense stacks and the bf16 model none
+PC_LAUNCHES = {"resblock": 14, "resblock_pc2p_mem": 14, "three_layers": 2,
+               "denseblock": 0, "dense_p2pc_conv": 0, "bf16": 0}
+
+
 @pytest.mark.parametrize("name", sorted(VARIANTS) + ["bf16"])
 def test_chip_smoke_expects_the_jax_gate_at_full_width(name, monkeypatch):
     """chip_smoke.py serves every variant of the matrix and the bf16 model
@@ -151,7 +159,8 @@ def test_chip_smoke_expects_the_jax_gate_at_full_width(name, monkeypatch):
     of each (chip_smoke.expected_launches) are the JAX gate's there; the
     residual conv kernel's are 7, the resblock variant's Pitch2Pitch
     stack (stem 5 -> 8), and none elsewhere (resblock_pc2p_mem's stem is
-    4 -> 8)."""
+    4 -> 8); the pitch-class conv kernel's are one a conv of every float32
+    pitch-class stack at its widths (PC_LAUNCHES)."""
     import types
 
     import chip_smoke
@@ -165,4 +174,5 @@ def test_chip_smoke_expects_the_jax_gate_at_full_width(name, monkeypatch):
     want = jax_gate_launches(Config(fused_convstack=True, **kw), monkeypatch)
     assert chip_smoke.expected_launches(est) == {
         "cascade_pad": 7, "octave_response": 1, "conv7_layer": want,
-        "resconv7": 7 if name == "resblock" else 0}
+        "resconv7": 7 if name == "resblock" else 0,
+        "pcconv": PC_LAUNCHES.get(name, 6)}

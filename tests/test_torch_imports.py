@@ -293,11 +293,11 @@ def test_product_modules_never_import_the_oracles():
 
 def test_one_module_owns_the_stack_kernels():
     """ops/stack_kernels.py is the only module of the package that
-    imports both stack-kernel wrappers (convstack_cuda, resstack_cuda);
-    no module under models/ imports either, and neither wrapper imports
-    the other or stack_kernels."""
+    imports every stack-kernel wrapper (convstack_cuda, resstack_cuda,
+    pcstack_cuda); no module under models/ imports any, and no wrapper
+    imports another or stack_kernels."""
     package = os.path.join(REPO, "audio_key_estimation_torch")
-    wrappers = {"convstack_cuda", "resstack_cuda"}
+    wrappers = {"convstack_cuda", "resstack_cuda", "pcstack_cuda"}
     both = []
     for path in _port_sources():
         if not path.startswith(package):

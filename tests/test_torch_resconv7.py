@@ -162,12 +162,20 @@ RESOLVED = {"default": "conv7_layer", "resblock": "resconv7",
             "dense_p2pc_conv": None, "resblock published": "resconv7"}
 
 
+# each layer's pitch-class stack's kernel where it is not pcconv's at
+# every layer: dense stacks take none, and three_layers' layer-2 stack
+# (48 -> 64) is wider than the kernel's
+PC_RESOLVED = {"denseblock": [None, None], "dense_p2pc_conv": [None, None],
+               "three_layers": ["pcconv", "pcconv", None]}
+
+
 @pytest.mark.parametrize("name", sorted(RESOLVED))
 def test_each_stack_resolves_at_most_one_kernel(name):
     """Kernel C for a plain stack at its geometry, resconv7 for a
-    residual one whose stem is 5 -> 8, none for a dense stack, a
-    residual stem 1 -> 8 or a pitch-class stack; a model's copies keep
-    the same entries."""
+    residual one whose stem is 5 -> 8, none for a dense stack or a
+    residual stem 1 -> 8; pcconv for a plain or residual pitch-class
+    stack at its widths (PC_RESOLVED); a model's copies keep the same
+    entries."""
     assert set(RESOLVED) == {*VARIANTS, "resblock published"}
     kw = dict(resblock=True) if name == "resblock published" else {
         **dict(octaves=2, num_layers=2, conv_layers=3, n_filters=4,
@@ -175,9 +183,14 @@ def test_each_stack_resolves_at_most_one_kernel(name):
     model = build_model(Config(fused_convstack=True, **kw))
     stacks = [m for m in model.modules() if isinstance(m, ConvStack)]
     assert stacks[1] is model.model[1].p2p
+    layers = list(model.model)
+    want = {layer.pc2pc: k for layer, k in zip(
+        layers, PC_RESOLVED.get(name, ["pcconv"] * len(layers)))}
+    want |= {layer.p2p: k for layer, k in zip(
+        layers[1:], [RESOLVED[name]] + [None] * (len(layers) - 2))}
+    assert len(want) == len(stacks)
     assert [s.kernel for s in stacks] == [
-        n and SK.named(n)
-        for n in [None, RESOLVED[name]] + [None] * (len(stacks) - 2)]
+        want[s] and SK.named(want[s]) for s in stacks]
     # replicas (deep copies) and pickles share the entries
     for twin in (copy.deepcopy(model), pickle.loads(pickle.dumps(model))):
         assert all(a.kernel is b.kernel for a, b in zip(
@@ -213,12 +226,13 @@ def profiled():
 
 
 # name: (Config keywords, eval) -> the Pitch2Pitch record's hand_kernel
-# (None: no stack is built for the kernel, so no record carries one)
-SPAN_CASES = {"resblock": (dict(resblock=True), True, 1),
-              "resblock training": (dict(resblock=True), False, 0),
+# (None: no stack is built for the kernel, so no record carries one), the
+# pitch-class records' pc_kernel
+SPAN_CASES = {"resblock": (dict(resblock=True), True, 1, 1),
+              "resblock training": (dict(resblock=True), False, 0, 0),
               "resblock fused_convstack off": (
-                  dict(resblock=True, fused_convstack=False), True, 0),
-              "plain": (dict(), True, None)}
+                  dict(resblock=True, fused_convstack=False), True, 0, 0),
+              "plain": (dict(), True, None, 1)}
 
 
 @pytest.mark.parametrize("case", sorted(SPAN_CASES))
@@ -226,8 +240,10 @@ def test_the_stack_span_carries_hand_kernel(case):
     """A resblock model's Pitch2Pitch akx.stack keeps convs 7 and
     res_blocks 3 and carries hand_kernel: 1 where the gate took it, 0 in
     training or with fused_convstack off. Its pitch-class stacks, and
-    every stack of a plain model (kernel C's included), carry none."""
-    kw, eval_mode, hand = SPAN_CASES[case]
+    every stack of a plain model (kernel C's included), carry none; the
+    pitch-class stacks carry pc_kernel instead, 1 where pcconv's gate took
+    them."""
+    kw, eval_mode, hand, pc = SPAN_CASES[case]
     resblock = kw.get("resblock", False)
     cfg = Config(**{**dict(octaves=2, num_layers=2, conv_layers=3,
                            n_filters=4, kernel_size=7, head_layers=2,
@@ -243,7 +259,8 @@ def test_the_stack_span_carries_hand_kernel(case):
     want = [{"convs": 7 if resblock else 3,
              "res_blocks": 3 if resblock else 0,
              **({"hand_kernel": hand} if m is p2p and hand is not None
-                else {})}
+                else {}),
+             **({} if m is p2p else {"pc_kernel": pc})}
             for m in model.modules() if isinstance(m, ConvStack)]
     assert len(stacks) == len(want) == 3
 
@@ -330,7 +347,8 @@ def test_the_kernel_share_is_declared_for_the_residual_cell():
                  "layer": "conv stacks (models.blocks.ConvStack)",
                  "moves": "device_audio_min_per_s",
                  "workloads": ["resblock.resident"]}
-    assert bench["per_layer"][-1] is m
+    names = [m["name"] for m in bench["per_layer"]]
+    assert names.index(m["name"]) == names.index("res_stack_roofline") + 1
 
 
 # ---------------------------------------------------------------------------
