@@ -344,7 +344,10 @@ class ConvStack(nn.Module):
     a stack whose kernel is `recorded` also carries that count
     (`hand_kernel` for resconv7, `pc_kernel` for pcconv): 1 where
     forward ran it (the kernel on a card, its plain version on the CPU),
-    else 0.
+    else 0. A dense stack's record also carries `dense_layers` (the
+    DenseLayers it runs) and `cat_bytes`, the bytes its block's
+    concatenations write (one before each layer, and the block's
+    output), from the input's shape.
     """
 
     def __init__(self, in_ch, out_ch, kernel_size, conv_layers, equivariant,
@@ -382,6 +385,12 @@ class ConvStack(nn.Module):
             "convs": (1 + 2 * conv_layers if resblock else
                       2 * conv_layers if denseblock else conv_layers),
             "res_blocks": conv_layers if resblock else 0}
+        # channels the dense block's concatenations write, per position
+        self.cat_channels = 0
+        if denseblock:
+            self.span_counts["dense_layers"] = conv_layers
+            self.cat_channels = sum(in_ch + i * out_ch
+                                    for i in range(conv_layers + 1))
         self.kernel = kernel_for(
             "residual" if resblock else "dense" if denseblock else "plain",
             equivariant, kernel_size, self.cins, out_ch)
@@ -409,6 +418,10 @@ class ConvStack(nn.Module):
         counts = self.span_counts
         if k is not None and k.recorded:
             counts = {**counts, k.recorded: int(take)}
+        elif self.cat_channels:
+            n, _, h, t = x.shape
+            counts = {**counts, "cat_bytes": self.cat_channels * n * h * t
+                      * x.element_size()}
         with span("akx.stack", tally=False, **counts):
             if take:
                 return k.run(x, k.operands(self.conv_pairs()))

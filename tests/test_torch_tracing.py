@@ -14,8 +14,9 @@ serving and training stages.
    ensemble's forward is one akx.model;
  * every ConvStack forward is one akx.stack under akx.model (plain,
    residual, dense, and kernel C's fused stack alike), its record
-   carrying the convs it runs and its residual blocks, none of which
-   reaches totals();
+   carrying the convs it runs and its residual blocks, and a dense
+   one's its layers and the bytes its concatenations write, none of
+   which reaches totals();
  * a train_step fed through prefetch: akx.feed_wait, acc_grad akx.forward
    and akx.backward and one akx.optimizer under one akx.train_step, the
    frames totals of every padded batch, and the producer thread's spans
@@ -154,7 +155,7 @@ def wavs(tmp_path, seconds=(3.0, 2.2, 1.7)):
 
 
 def estimator(**kw):
-    cfg = Config(**SERVE, **kw)
+    cfg = Config(**{**SERVE, **kw})
     return KeyEstimator(cfg, build_model(cfg).state_dict(), device="cpu",
                         bucket_seconds=(4,))
 
@@ -215,9 +216,48 @@ def test_each_conv_stack_is_one_stack_span_under_the_model(kind):
     assert len(model) == 1 and n == 3 and len(stacks) == n
     assert all(s.parent == model[0].id for s in stacks)
     assert all(s.request == model[0].request for s in stacks)
-    assert all(s.counts == {"convs": convs, "res_blocks": blocks}
+    dense = {"dense_layers", "cat_bytes"} if kind == "denseblock" else set()
+    assert all(s.counts.keys() == {"convs", "res_blocks"} | dense
+               for s in stacks)
+    assert all((s.counts["convs"], s.counts["res_blocks"]) == (convs, blocks)
                for s in stacks)
     assert "akx.stack" not in totals()
+
+
+# each kind's (convs, res_blocks) a stack at three layers
+THREE_LAYERS = {"plain": (3, 0), "resblock": (7, 3), "denseblock": (6, 0)}
+
+
+@pytest.mark.parametrize("kind", sorted(STACKS))
+def test_a_dense_stack_counts_its_layers_and_concatenations(kind):
+    """At three layers a stack's record counts its convs and residual
+    blocks as its depth gives them (one layer in
+    `test_each_conv_stack_is_one_stack_span_under_the_model`), and a
+    dense stack's also carries dense_layers (3) and cat_bytes: the
+    float32 bytes of its block's concatenations, the input and i layers'
+    features before layer i and the block's output, at the input's
+    shape."""
+    est = estimator(**{**STACKS[kind][0], "conv_layers": 3})
+    inputs = []
+    for m in est.model.modules():
+        if isinstance(m, ConvStack):
+            m.register_forward_pre_hook(
+                lambda mod, a: inputs.append((mod, a[0].shape)))
+    y = np.random.default_rng(2).normal(size=(2, 3 * SR)).astype(np.float32)
+    with profiled():
+        est.predict_waveforms(list(y), SR)
+    stacks = [s for s in spans() if s.name == "akx.stack"]
+    assert len(stacks) == len(inputs) == 3
+    for s, (mod, (b, cin, h, t)) in zip(sorted(stacks, key=lambda s: s.id),
+                                        inputs):
+        assert (s.counts["convs"], s.counts["res_blocks"]) == \
+            THREE_LAYERS[kind]
+        if kind != "denseblock":
+            continue
+        growth = SERVE["n_filters"]
+        want = 4 * b * h * t * sum(cin + i * growth for i in range(4))
+        assert (s.counts["dense_layers"], s.counts["cat_bytes"]) == (3, want)
+        assert mod.out_channels == cin + 3 * growth
 
 
 def test_off_a_session_a_stack_records_nothing():
